@@ -1,0 +1,267 @@
+"""Transducer prefix beam search with CTC shallow fusion, on the device
+(port of ``_rnnt_beam_search_device`` in the JAX ``decode/rnnt_search.py``,
+pairwise merge).
+
+Per frame, per beam: predictor state after the beam's last token, the
+joint with enc[t], fusion ``log(tw * exp(trans) + cw * exp(ctc[t]))``, the
+top-k expansion (blank keeps the prefix and state, a token extends both),
+log-add merge of identical prefixes (two wrapping 32-bit polynomial hashes
++ length), prune to the beam.  Fixed beam, fixed shapes: the frame loop is
+a Python loop of tensor ops on the device; each frame runs K2
+(``ops/joint_topk.py``) for the joint head + fusion + top-k and K3
+(``ops/lstm_step.py``) for the predictor, the port of the JAX beam's
+``pallas_joint`` and fused-predictor branches.  The encoder side of the
+joint is projected once per batch, the CTC log-probs are lane-padded with
+-inf once, and the initial blank step is taken before the loop.
+
+Ties never go through ``torch.topk``/``sort``: the vocab selection follows
+``ops/topk.top_k_vocab`` and the final prune ``ops/topk.stable_top_k``
+(``jax.lax.top_k`` order).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from paper_accurate_fast_cheap_tpu_torch.ops.joint_topk import (
+    LANES, joint_top_k_vocab)
+from paper_accurate_fast_cheap_tpu_torch.ops.topk import stable_top_k
+
+P1 = 2654435761
+P2 = 2246822519
+_M32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass
+class DecodeResult:
+    tokens: List[int]
+    score: float = 0.0
+    confidence: float = 0.0
+    tokens_confidence: List[float] = dataclasses.field(default_factory=list)
+    times: List[int] = dataclasses.field(default_factory=list)
+    nbest: List[List[int]] = dataclasses.field(default_factory=list)
+    nbest_scores: List[float] = dataclasses.field(default_factory=list)
+    nbest_times: List[List[int]] = dataclasses.field(default_factory=list)
+
+
+def _mul_u32(a: torch.Tensor, p: int) -> torch.Tensor:
+    """(a * p) mod 2**32 for int64 ``a`` in [0, 2**32), without int64
+    overflow: the high and low 16-bit halves of ``a`` are multiplied apart."""
+    hi = ((a >> 16) * p) & 0xFFFF
+    return ((hi << 16) + (a & 0xFFFF) * p) & _M32
+
+
+def make_transducer_step_fns(model):
+    """(predictor_step, joint_step, init_state_fn) for the searches.
+
+    ``joint_step`` carries the split joint the device beam needs:
+    ``enc_proj`` (batched encoder projection), ``preact`` (the activation
+    before the vocab head) and ``head`` (the ``ffn_out`` weight and bias,
+    which K2 applies inside the kernel).
+    """
+    def predictor_step(tokens, state):
+        return model.predictor_step(tokens, state)
+
+    def joint_step(enc_t, pred):
+        return model.joint_step(enc_t, pred)
+
+    joint_step.enc_proj = model.joint_enc_proj
+    joint_step.preact = model.joint_preact
+    joint_step.head = lambda: (model.joint.ffn_out.weight,  # noqa: E731
+                               model.joint.ffn_out.bias)
+    return predictor_step, joint_step, model.predictor_init_state
+
+
+def rnnt_beam_search(predictor_step: Callable, joint_step: Callable,
+                     init_state_fn: Callable, enc_out: torch.Tensor,
+                     enc_lens: torch.Tensor, ctc_probs: torch.Tensor,
+                     beam_size: int = 8, blank_id: int = 0,
+                     ctc_weight: float = 0.3, transducer_weight: float = 0.7,
+                     impl: str = "device", defer: bool = False):
+    """Batched prefix beam search with CTC shallow fusion.
+
+    enc_out (B, T, De), enc_lens (B,), ctc_probs (B, T, V) log-probs.
+    Returns a list of DecodeResult, or with ``defer=True`` the final carry
+    (for ``pack_device_beam`` / ``finalize_device_beam``).  Only
+    ``impl="device"`` (with the pairwise merge) is ported.
+    """
+    if impl != "device":
+        raise NotImplementedError("the port has the device beam only")
+    with torch.no_grad():
+        out = _rnnt_beam_search_device(
+            predictor_step, joint_step, init_state_fn, enc_out, enc_lens,
+            ctc_probs, beam_size, blank_id, ctc_weight, transducer_weight)
+    return out if defer else finalize_device_beam(out)
+
+
+def _rnnt_beam_search_device(predictor_step, joint_step, init_state_fn,
+                             enc_out, enc_lens, ctc_probs, beam_size,
+                             blank_id, ctc_weight, transducer_weight):
+    dev = enc_out.device
+    B, T, _ = enc_out.shape
+    N = beam_size
+    NK = N * N
+    L = T  # at most one emission per frame
+    neg = float("-inf")
+    log_tw = math.log(transducer_weight) if transducer_weight > 0 else neg
+    log_cw = math.log(ctc_weight) if ctc_weight > 0 else neg
+    lens = enc_lens.to(dev)
+    w_out, b_out = joint_step.head()
+
+    # hoisted once per batch: the joint's encoder projection, and the CTC
+    # log-probs lane-padded with -inf (kept in their dtype)
+    enc_p = joint_step.enc_proj(enc_out)
+    V = ctc_probs.shape[-1]
+    Vp = -(-V // LANES) * LANES
+    ctc = ctc_probs if Vp == V else F.pad(ctc_probs, (0, Vp - V), value=neg)
+
+    # the carry holds the state AFTER each beam's last token (the leading
+    # blank here), so emissions step the predictor from the right state
+    state = init_state_fn(B * N)
+    pred_out, state = predictor_step(
+        torch.full((B * N,), blank_id, dtype=torch.int32, device=dev), state)
+    hs, cs = state
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    hyps = torch.zeros(B, N, L, **i32)
+    hyp_len = torch.zeros(B, N, **i32)
+    scores = torch.full((B, N), neg, device=dev)
+    scores[:, 0] = 0.0
+    h1 = torch.zeros(B, N, dtype=torch.int64, device=dev)
+    h2 = torch.zeros(B, N, dtype=torch.int64, device=dev)
+    last = torch.full((B, N), blank_id, **i32)
+
+    jidx = torch.arange(NK, device=dev)
+    j_lt_i = (jidx[:, None] < jidx[None, :])[None]
+    row0 = (torch.arange(B, device=dev) * N)[:, None]
+
+    for t in range(T):
+        active = t < lens                                  # (B,)
+        enc_rep = enc_p[:, t].repeat_interleave(N, dim=0)  # (B*N, J)
+        x_act = joint_step.preact(enc_rep, pred_out)
+        vals, toks = joint_top_k_vocab(x_act, w_out, b_out, ctc[:, t], N,
+                                       log_tw, log_cw)     # (B, N, N)
+        c_score = (scores[:, :, None] + vals).reshape(B, NK)
+        c_tok = toks.reshape(B, NK)
+        c_adv = c_tok != blank_id
+        tk = c_tok.to(torch.int64) + 1
+        src_h1 = h1.repeat_interleave(N, dim=1)
+        src_h2 = h2.repeat_interleave(N, dim=1)
+        c_h1 = torch.where(c_adv, (_mul_u32(src_h1, P1) + tk) & _M32, src_h1)
+        c_h2 = torch.where(c_adv, (_mul_u32(src_h2, P2) + tk * P1) & _M32,
+                           src_h2)
+        c_len = hyp_len.repeat_interleave(N, dim=1) + c_adv.to(torch.int32)
+
+        # sort-free walk: candidate j precedes i iff its score is higher, or
+        # equal with a lower index (stable argsort of -score)
+        eq = ((c_h1[:, :, None] == c_h1[:, None, :])
+              & (c_h2[:, :, None] == c_h2[:, None, :])
+              & (c_len[:, :, None] == c_len[:, None, :]))
+        sc_j, sc_i = c_score[:, :, None], c_score[:, None, :]
+        before = (sc_j > sc_i) | ((sc_j == sc_i) & j_lt_i)
+        is_first = ~torch.any(eq & before, dim=1)
+        firsts_before = torch.sum(is_first[:, :, None] & before, dim=1)
+        # the walk stops once N distinct prefixes exist
+        in_win = firsts_before < N
+        contrib = torch.where(eq & in_win[:, None, :], c_score[:, None, :],
+                              neg)
+        merged = torch.logsumexp(contrib, dim=-1)
+        final = torch.where(is_first & in_win, merged, neg)
+        top_scores, top_pos = stable_top_k(final, N)     # (B, N)
+        ok = top_scores > neg
+
+        n_src = top_pos // N
+        n_tok = torch.gather(c_tok, 1, top_pos)
+        n_h1 = torch.gather(c_h1, 1, top_pos)
+        n_h2 = torch.gather(c_h2, 1, top_pos)
+        n_len = torch.gather(c_len, 1, top_pos)
+        n_adv = (n_tok != blank_id) & ok
+
+        new_hyps = torch.gather(hyps, 1, n_src[:, :, None].expand(B, N, L))
+        # write the new token at position len-1 (rewrite in place where no
+        # token was emitted)
+        wpos = (n_len - n_adv.to(torch.int32)).clamp(0, L - 1)[..., None]
+        wpos = wpos.long()
+        cur = torch.gather(new_hyps, 2, wpos)
+        new_hyps.scatter_(2, wpos, torch.where(n_adv[..., None],
+                                               n_tok[..., None], cur))
+        new_last = torch.where(n_adv, n_tok, torch.gather(last, 1, n_src))
+
+        # predictor reorder + step (advance only where a token was emitted)
+        sel = (row0 + n_src).reshape(-1)
+        adv = n_adv.reshape(-1)
+        hs_g, cs_g = hs[:, sel], cs[:, sel]
+        pred_g = pred_out[sel]
+        cand_out, (cand_h, cand_c) = predictor_step(new_last.reshape(-1),
+                                                    (hs_g, cs_g))
+        pred_new = torch.where(adv[:, None], cand_out, pred_g)
+        hs_new = torch.where(adv[None, :, None], cand_h, hs_g)
+        cs_new = torch.where(adv[None, :, None], cand_c, cs_g)
+
+        # frozen where the utterance already ended
+        am = active[:, None]
+        amn = active.repeat_interleave(N)[:, None]
+        hyps = torch.where(am[..., None], new_hyps, hyps)
+        hyp_len = torch.where(am, n_len, hyp_len)
+        scores = torch.where(am, top_scores, scores)
+        h1 = torch.where(am, n_h1, h1)
+        h2 = torch.where(am, n_h2, h2)
+        last = torch.where(am, new_last, last)
+        pred_out = torch.where(amn, pred_new, pred_out)
+        hs = torch.where(amn[None], hs_new, hs)
+        cs = torch.where(amn[None], cs_new, cs)
+
+    return dict(hyps=hyps, hyp_len=hyp_len, scores=scores, h1=h1, h2=h2,
+                last=last, pred_out=pred_out, state=(hs, cs))
+
+
+def pack_device_beam(out) -> torch.Tensor:
+    """Flatten a deferred beam carry into ONE int32 (B, N*L + 2N) tensor:
+    hyps, hyp_len, scores (f32 bits).  Recover with
+    ``finalize_device_beam(packed, beam=N)``."""
+    hyps = out["hyps"]
+    B, N, L = hyps.shape
+    return torch.cat([
+        hyps.reshape(B, N * L).to(torch.int32),
+        out["hyp_len"].to(torch.int32),
+        out["scores"].to(torch.float32).contiguous().view(torch.int32),
+    ], dim=1)
+
+
+def finalize_device_beam(out, beam: int = 0) -> List[DecodeResult]:
+    """Materialise a deferred carry (dict) or a ``pack_device_beam`` buffer
+    (with ``beam=N``) into DecodeResults: the n-best with finite scores,
+    best first."""
+    if not isinstance(out, dict):
+        if beam <= 0:
+            raise ValueError("packed finalize needs beam=N")
+        arr = out.cpu().numpy()
+        B, W = arr.shape
+        N = beam
+        L = W // N - 2
+        hyps = arr[:, : N * L].reshape(B, N, L)
+        hyp_len = arr[:, N * L: N * L + N]
+        scores = np.ascontiguousarray(arr[:, N * L + N:]).view(np.float32)
+    else:
+        hyps = out["hyps"].cpu().numpy()
+        hyp_len = out["hyp_len"].cpu().numpy()
+        scores = out["scores"].cpu().numpy()
+    B, N = scores.shape
+    results = []
+    for b in range(B):
+        nbest, nscores = [], []
+        for j in range(N):
+            if not np.isfinite(scores[b, j]):
+                continue
+            nbest.append([int(x) for x in hyps[b, j, : hyp_len[b, j]]])
+            nscores.append(float(scores[b, j]))
+        results.append(DecodeResult(
+            tokens=nbest[0] if nbest else [],
+            score=nscores[0] if nscores else 0.0,
+            nbest=nbest, nbest_scores=nscores))
+    return results

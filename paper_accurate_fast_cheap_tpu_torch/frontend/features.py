@@ -1,0 +1,101 @@
+"""Kaldi-compatible log-mel filterbank (port of the JAX
+``frontend/features.py``: snip_edges framing, DC removal, preemphasis 0.97,
+povey window, power spectrum over a 512-point FFT, Kaldi mel banks from
+20 Hz to nyquist, natural log with a float-epsilon floor).  Written with
+``torch.fft.rfft``; dither waits for the training slice."""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+_KALDI_EPS = 1.1920928955078125e-07  # float32 machine epsilon, Kaldi's floor
+
+
+def mel_scale(freq):
+    return 1127.0 * np.log1p(np.asarray(freq, np.float64) / 700.0)
+
+
+def kaldi_mel_banks(num_bins: int, fft_size: int, sample_rate: float,
+                    low_freq: float = 20.0,
+                    high_freq: float = 0.0) -> np.ndarray:
+    """Kaldi triangular mel filterbank (num_bins, fft_size // 2 + 1), with a
+    zero nyquist column; high_freq <= 0 means nyquist + high_freq."""
+    nyquist = 0.5 * sample_rate
+    if high_freq <= 0.0:
+        high_freq = nyquist + high_freq
+    num_fft_bins = fft_size // 2
+    fft_bin_width = sample_rate / fft_size
+    mel_low = mel_scale(low_freq)
+    mel_high = mel_scale(high_freq)
+    mel_delta = (mel_high - mel_low) / (num_bins + 1)
+    mel_of_bin = mel_scale(fft_bin_width * np.arange(num_fft_bins))
+    banks = np.zeros((num_bins, num_fft_bins + 1), np.float64)
+    for b in range(num_bins):
+        left = mel_low + b * mel_delta
+        center = mel_low + (b + 1) * mel_delta
+        right = mel_low + (b + 2) * mel_delta
+        up = (mel_of_bin - left) / (center - left)
+        down = (right - mel_of_bin) / (right - center)
+        banks[b, :num_fft_bins] = np.clip(np.minimum(up, down), 0.0, None)
+    return banks.astype(np.float32)
+
+
+def _povey_window(n: int) -> np.ndarray:
+    a = 2.0 * math.pi / (n - 1)
+    return (0.5 - 0.5 * np.cos(a * np.arange(n))) ** 0.85
+
+
+def num_frames(num_samples: int, frame_length: int = 400,
+               frame_shift: int = 160) -> int:
+    """snip_edges=True frame count."""
+    if num_samples < frame_length:
+        return 0
+    return 1 + (num_samples - frame_length) // frame_shift
+
+
+def fbank_batch(waveforms: torch.Tensor, lengths: torch.Tensor,
+                num_mel_bins: int = 80, frame_length: int = 400,
+                frame_shift: int = 160, sample_rate: int = 16000,
+                preemphasis: float = 0.97, round_to_power_of_two: bool = True,
+                use_power: bool = True, remove_dc_offset: bool = True):
+    """Batched Kaldi fbank over padded int16-scaled waveforms (B, S) ->
+    ((B, F, bins) f32, frame_lens (B,) int32).  Padded samples only reach
+    the trailing frames, which callers mask with ``frame_lens``."""
+    B, S = waveforms.shape
+    nf = num_frames(S, frame_length, frame_shift)
+    fft_size = frame_length
+    if round_to_power_of_two:
+        fft_size = 1 << (frame_length - 1).bit_length()
+    dev = waveforms.device
+    frames = waveforms.float().unfold(1, frame_length, frame_shift)[:, :nf]
+    if remove_dc_offset:
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+    if preemphasis != 0.0:
+        prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+        frames = frames - preemphasis * prev
+    frames = frames * torch.tensor(_povey_window(frame_length),
+                                   dtype=torch.float32, device=dev)
+    if fft_size > frame_length:
+        frames = F.pad(frames, (0, fft_size - frame_length))
+    power = torch.fft.rfft(frames, n=fft_size).abs()
+    if use_power:
+        power = power * power
+    banks = torch.tensor(kaldi_mel_banks(num_mel_bins, fft_size,
+                                         float(sample_rate)), device=dev)
+    mel = power @ banks.T
+    feats = torch.log(torch.clamp(mel, min=_KALDI_EPS))
+    lengths = lengths.to(dev)
+    frame_lens = torch.where(
+        lengths < frame_length, torch.zeros_like(lengths),
+        1 + torch.div(lengths - frame_length, frame_shift,
+                      rounding_mode="floor")).to(torch.int32)
+    return feats, frame_lens
+
+
+def fbank(waveform: torch.Tensor, **kw) -> torch.Tensor:
+    """Kaldi fbank of one waveform (num_samples,) -> (frames, bins)."""
+    lens = torch.tensor([waveform.shape[0]], device=waveform.device)
+    return fbank_batch(waveform[None], lens, **kw)[0][0]

@@ -1,0 +1,65 @@
+"""Conformer convolution module and feed-forward (port of the JAX
+``models/convolution.py``; non-causal, layer_norm, no cache).
+
+The fused FFN kernel of the JAX package (``ops/ffn_pallas.py``) is off by
+default there and is not on this path; the port's FFN is two plain
+products.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from paper_accurate_fast_cheap_tpu_torch.models.layers import (
+    conv, dense, layer_norm)
+
+
+class ConvolutionModule(nn.Module):
+    """pointwise(2C) -> GLU -> depthwise(k) -> LayerNorm -> SiLU ->
+    pointwise, with pad frames zeroed before and after."""
+
+    def __init__(self, channels: int, kernel_size: int = 31,
+                 norm: str = "layer_norm"):
+        super().__init__()
+        if norm != "layer_norm" or (kernel_size - 1) % 2:
+            raise NotImplementedError(
+                "the port's conv module is non-causal with layer_norm and "
+                "an odd kernel")
+        self.Dense_0 = nn.Linear(channels, 2 * channels)
+        self.Conv_0 = nn.Conv1d(channels, channels, kernel_size,
+                                padding=(kernel_size - 1) // 2,
+                                groups=channels)
+        self.LayerNorm_0 = nn.LayerNorm(channels, eps=1e-5)
+        self.Dense_1 = nn.Linear(channels, channels)
+
+    def forward(self, x: torch.Tensor,
+                mask_pad: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if mask_pad is not None:
+            x = torch.where(mask_pad[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                              device=x.device))
+        a, b = dense(self.Dense_0, x).chunk(2, dim=-1)
+        y = a * torch.sigmoid(b)
+        y = conv(self.Conv_0, y.transpose(1, 2)).transpose(1, 2)
+        y = F.silu(layer_norm(self.LayerNorm_0, y))
+        y = dense(self.Dense_1, y)
+        if mask_pad is not None:
+            y = torch.where(mask_pad[..., None], y, torch.zeros((), dtype=y.dtype,
+                                                              device=y.device))
+        return y
+
+
+class PositionwiseFeedForward(nn.Module):
+    """Linear -> swish -> Linear."""
+
+    def __init__(self, d_model: int, hidden: int, activation: str = "swish"):
+        super().__init__()
+        if activation != "swish":
+            raise NotImplementedError(f"ffn activation {activation!r}")
+        self.Dense_0 = nn.Linear(d_model, hidden)
+        self.Dense_1 = nn.Linear(hidden, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(self.Dense_1, F.silu(dense(self.Dense_0, x)))

@@ -1,0 +1,37 @@
+"""Relative positional encoding (port of the JAX ``models/embedding.py``)."""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+
+def sinusoid_positions(offset: int, T: int, d_model: int,
+                       device=None) -> torch.Tensor:
+    """Rows [offset, offset+T) of the sinusoid table, f32 (T, d_model)."""
+    pos = (float(offset) + torch.arange(T, dtype=torch.float32,
+                                        device=device))[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                 device=device)
+                    * -(math.log(10000.0) / d_model))
+    ang = pos * div[None, :]
+    pe = torch.zeros(T, d_model, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+class RelPositionalEncoding(nn.Module):
+    """Transformer-XL style: scales x by sqrt(d) (in x's dtype) and returns
+    the sinusoid table separately as (1, T, d)."""
+
+    def __init__(self, d_model: int):
+        super().__init__()
+        self.d_model = d_model
+
+    def forward(self, x: torch.Tensor, offset: int = 0):
+        pos = sinusoid_positions(offset, x.shape[1], self.d_model,
+                                 x.device)[None]
+        scale = torch.sqrt(torch.tensor(float(self.d_model), dtype=x.dtype))
+        return x * scale.to(x.device), pos

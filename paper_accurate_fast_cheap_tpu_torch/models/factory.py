@@ -1,0 +1,81 @@
+"""Model factory from WeNet-style config dicts (port of the JAX
+``models/factory.py`` for ``model: transducer``, ``encoder: conformer``,
+``predictor: rnn``; other families wait for later slices)."""
+from __future__ import annotations
+
+import logging
+from typing import Any, Dict, Optional
+
+import torch
+
+from paper_accurate_fast_cheap_tpu_torch import resolve_device
+from paper_accurate_fast_cheap_tpu_torch.models.layers import init_default
+from paper_accurate_fast_cheap_tpu_torch.models.transducer import Transducer
+
+# encoder_conf keys that map 1:1 onto ConformerEncoder fields
+_ENCODER_KEYS = {
+    "output_size", "attention_heads", "linear_units", "num_blocks",
+    "dropout_rate", "positional_dropout_rate", "attention_dropout_rate",
+    "input_layer", "pos_enc_layer_type", "normalize_before",
+    "macaron_style", "use_cnn_module", "cnn_module_kernel",
+    "cnn_module_norm", "activation_type", "causal", "key_bias",
+    "selfattention_layer_type", "static_chunk_size", "use_dynamic_chunk",
+    "use_dynamic_left_chunk", "gradient_checkpointing",
+    "cgmlp_linear_units", "cgmlp_conv_kernel", "use_ffn",
+    "merge_conv_kernel",
+}
+# keys routed into rwkv_conf (accepted; wkv_impl/wkv_chunk_size do nothing)
+_RWKV_KEYS = {
+    "rnn_att_version", "rnn_att_direction", "rwkv_ctx_len",
+    "rwkv_do_bfloat16", "att_context_size", "global_tokens",
+    "global_tokens_spacing", "global_attn_separate", "wkv_impl",
+    "wkv_chunk_size",
+}
+
+
+def encoder_conf_from_yaml(conf: Dict[str, Any],
+                           input_dim: int = 80) -> Dict[str, Any]:
+    enc = {k: v for k, v in conf.items() if k in _ENCODER_KEYS}
+    rwkv = {k: v for k, v in conf.items() if k in _RWKV_KEYS}
+    enc["input_size"] = input_dim
+    if rwkv:
+        enc["rwkv_conf"] = rwkv
+    unknown = set(conf) - _ENCODER_KEYS - _RWKV_KEYS
+    if unknown:
+        logging.getLogger(__name__).info("encoder_conf keys ignored: %s",
+                                         sorted(unknown))
+    return enc
+
+
+def init_model(config: Dict[str, Any], vocab_size: int, input_dim: int = 80,
+               device=None, generator: Optional[torch.Generator] = None):
+    """Build and initialise the model a WeNet-style config describes.
+
+    Weights are drawn on the CPU from ``generator`` (seed 0 if None) with
+    flax's default initializers, then moved to ``device`` (``cuda`` unless
+    the caller asks for the CPU).  Returns (model, "transducer").
+    """
+    dev = resolve_device(device)
+    model_type = config.get("model", "asr_model")
+    if (model_type != "transducer"
+            or config.get("encoder", "conformer") != "conformer"
+            or config.get("predictor", "rnn") != "rnn"):
+        raise NotImplementedError(
+            "the port builds model: transducer with encoder: conformer and "
+            "predictor: rnn; other families wait for later slices")
+    enc_conf = encoder_conf_from_yaml(config.get("encoder_conf", {}),
+                                      input_dim)
+    joint_conf = dict(config.get("joint_conf", {}))
+    joint_conf.pop("enc_output_size", None)
+    joint_conf.pop("pred_output_size", None)
+    pred_conf = dict(config.get("predictor_conf", {}))
+    for k in ("rnn_type", "bias", "embed_dropout", "dropout"):
+        pred_conf.pop(k, None)
+    model = Transducer(
+        vocab_size=vocab_size, encoder_conf=enc_conf,
+        predictor_conf=pred_conf, joint_conf=joint_conf,
+        blank_id=config.get("ctc_conf", {}).get("ctc_blank_id", 0))
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    init_default(model, generator)
+    return model.to(dev).eval(), "transducer"

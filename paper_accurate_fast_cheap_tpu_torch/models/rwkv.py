@@ -1,0 +1,160 @@
+"""RWKV-6 time-mix "recurrent attention" (port of the JAX ``models/rwkv.py``).
+
+``RWKVTimeMix``: token-shift delta, data-dependent LoRA mixing (D_MIX=32)
+for r/k/v/w, per-channel decay ``w = time_decay + tanh(w @ w1) @ w2``
+(D_DECAY=64), bonus ``u = time_faaaa``, bias-free r/k/v projections, the
+WKV recurrence (K1, ``ops/wkv6_cuda.py``), LayerNorm(dim_att) and the
+output projection.  The layer-dependent init ramps are exact.
+
+``RWKVAttention``: directions ``uni`` and ``bi``.  ``bi`` runs a second
+time-mix on the valid-prefix-reversed input (``flip_padded``) and averages.
+The direction-dropout variants wait for a later slice.  ``wkv_impl`` and
+``wkv_version`` are accepted so configs load, and do nothing: the kernel
+wrapper always runs (its plain version on the CPU).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from paper_accurate_fast_cheap_tpu_torch.models.layers import (
+    dense, layer_norm, uniform_)
+from paper_accurate_fast_cheap_tpu_torch.ops.wkv6_cuda import wkv6_cuda
+
+D_MIX_LORA = 32
+D_DECAY_LORA = 64
+
+
+def _tmix_ramps(layer_id: int, n_layers: int, n_embd: int, dim_att: int,
+                n_head: int, head_size: int):
+    """Layer-position-dependent init constants."""
+    r01 = layer_id / max(n_layers - 1, 1)          # 0 -> 1
+    r1a0 = 1.0 - layer_id / n_layers               # 1 -> ~0
+    ddd = np.arange(n_embd, dtype=np.float64) / n_embd
+    maa_x = 1.0 - np.power(ddd, r1a0)
+    maa_r = 1.0 - np.power(ddd, 0.5 * r1a0)
+    maa_k = 1.0 - np.power(ddd, r1a0)
+    maa_v = 1.0 - (np.power(ddd, r1a0) + 0.3 * r01)
+    maa_w = 1.0 - np.power(ddd, r1a0)
+    n = np.arange(dim_att, dtype=np.float64)
+    decay_speed = -6.0 + 5.0 * (n / (dim_att - 1)) ** (0.7 + 1.3 * r01)
+    zigzag = ((n + 1) % 3 - 1) * 0.1
+    faaaa = (r01 * (1.0 - n / (dim_att - 1)) + zigzag).reshape(
+        n_head, head_size)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return {
+        "maa_x": f32(maa_x), "maa_r": f32(maa_r), "maa_k": f32(maa_k),
+        "maa_v": f32(maa_v), "maa_w": f32(maa_w),
+        "decay_speed": f32(decay_speed), "faaaa": f32(faaaa),
+    }
+
+
+class RWKVTimeMix(nn.Module):
+    """RWKV-6c time-mix block: (B, T, C) -> (B, T, C)."""
+
+    def __init__(self, head_size: int, n_layers: int, n_embd: int,
+                 dim_att: int, layer_id: int = 0):
+        super().__init__()
+        C, A = n_embd, dim_att
+        self.head_size = head_size
+        self.n_head = A // head_size
+        self._ramps = (layer_id, n_layers, C, A)
+        P = lambda *s: nn.Parameter(torch.zeros(*s))  # noqa: E731
+        self.time_maa_x, self.time_maa_r = P(C), P(C)
+        self.time_maa_k, self.time_maa_v, self.time_maa_w = P(C), P(C), P(C)
+        self.time_maa_rkvw_w1 = P(C, D_MIX_LORA * 4)
+        self.time_maa_rkvw_w2 = P(4, D_MIX_LORA, C)
+        self.time_decay = P(A)
+        self.time_decay_w1 = P(C, D_DECAY_LORA)
+        self.time_decay_w2 = P(D_DECAY_LORA, A)
+        self.time_faaaa = P(self.n_head, head_size)
+        self.receptance = nn.Linear(C, A, bias=False)
+        self.key = nn.Linear(C, A, bias=False)
+        self.value = nn.Linear(C, A, bias=False)
+        self.ln_x = nn.LayerNorm(A, eps=1e-5)
+        self.output = nn.Linear(A, C, bias=False)
+
+    def reset_parameters_from(self, g: torch.Generator) -> None:
+        layer_id, n_layers, C, A = self._ramps
+        ramps = _tmix_ramps(layer_id, n_layers, C, A, self.n_head,
+                            self.head_size)
+        with torch.no_grad():
+            for name in ("x", "r", "k", "v", "w"):
+                getattr(self, f"time_maa_{name}").copy_(ramps[f"maa_{name}"])
+            self.time_decay.copy_(ramps["decay_speed"])
+            self.time_faaaa.copy_(ramps["faaaa"])
+            self.time_maa_rkvw_w1.zero_()
+            self.time_decay_w1.zero_()
+        uniform_(self.time_maa_rkvw_w2, -0.01, 0.01, g)
+        uniform_(self.time_decay_w2, -0.01, 0.01, g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, _ = x.shape
+        dt = x.dtype
+        # token shift: xx_t = x_{t-1} - x_t (zero at t=0)
+        xx = F.pad(x, (0, 0, 1, 0))[:, :-1] - x
+        xxx = x + xx * self.time_maa_x.to(dt)
+        mix = torch.tanh(xxx @ self.time_maa_rkvw_w1.to(dt))
+        mix = mix.reshape(B, T, 4, D_MIX_LORA)
+        mr, mk, mv, mw = torch.einsum("btfm,fmc->fbtc", mix,
+                                      self.time_maa_rkvw_w2.to(dt))
+        xr = x + xx * (self.time_maa_r.to(dt) + mr)
+        xk = x + xx * (self.time_maa_k.to(dt) + mk)
+        xv = x + xx * (self.time_maa_v.to(dt) + mv)
+        xw = x + xx * (self.time_maa_w.to(dt) + mw)
+        r = dense(self.receptance, xr)
+        k = dense(self.key, xk)
+        v = dense(self.value, xv)
+        w = self.time_decay.to(dt) + (
+            torch.tanh(xw @ self.time_decay_w1.to(dt))
+            @ self.time_decay_w2.to(dt))
+        shp = (B, T, self.n_head, self.head_size)
+        y = wkv6_cuda(r.reshape(shp), k.reshape(shp), v.reshape(shp),
+                      w.to(r.dtype).reshape(shp), self.time_faaaa.to(r.dtype))
+        y = layer_norm(self.ln_x, y.reshape(B, T, -1))
+        return dense(self.output, y)
+
+
+def flip_padded(x: torch.Tensor, lengths: Optional[torch.Tensor]):
+    """Reverse the valid prefix of each sequence; pad positions stay put."""
+    if lengths is None:
+        return torch.flip(x, (1,))
+    T = x.shape[1]
+    t = torch.arange(T, device=x.device)[None, :]
+    ln = lengths.to(x.device)[:, None]
+    idx = torch.where(t < ln, ln - 1 - t, t)
+    return torch.gather(x, 1, idx[..., None].expand_as(x))
+
+
+class RWKVAttention(nn.Module):
+    """Directional wrapper: ``uni`` or ``bi`` (average of the L2R pass and
+    the R2L pass over the valid prefix)."""
+
+    def __init__(self, head_size: int, dim_att: int, n_layers: int,
+                 direction: str = "bi", layer_id: int = 0,
+                 do_bfloat16: bool = True):
+        super().__init__()
+        if direction not in ("uni", "bi"):
+            raise NotImplementedError(
+                f"rwkv direction {direction!r} (direction dropout waits for "
+                f"a later slice of the port)")
+        self.direction = direction
+        self.do_bfloat16 = do_bfloat16
+        mk = lambda: RWKVTimeMix(head_size, n_layers, dim_att, dim_att,  # noqa
+                                 layer_id)
+        self.tmix = mk()
+        if direction == "bi":
+            self.tmix_rev = mk()
+
+    def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
+        in_dtype = x.dtype
+        if self.do_bfloat16:
+            x = x.to(torch.bfloat16)
+        if self.direction == "uni":
+            return self.tmix(x).to(in_dtype)
+        y_rev = flip_padded(self.tmix_rev(flip_padded(x, lengths)), lengths)
+        return ((self.tmix(x) + y_rev) / 2).to(in_dtype)

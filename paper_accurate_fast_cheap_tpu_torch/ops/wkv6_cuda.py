@@ -1,0 +1,73 @@
+"""K1: the WKV6 forward as a hand-written CUDA kernel (``csrc/wkv6_fwd.cu``).
+
+Port of the TPU kernel ``ops/wkv6_pallas.py`` (``_kernel_v5`` via the
+two-pass path, and the generations that compute the same y).  For a CUDA
+tensor :func:`wkv6_cuda` launches the kernel or raises; for a CPU tensor it
+runs the plain version, ``ops/wkv6.wkv6_chunked`` (same recurrence, same
+decay clamp).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from paper_accurate_fast_cheap_tpu_torch.ops import cuda_lib
+from paper_accurate_fast_cheap_tpu_torch.ops.wkv6 import wkv6_chunked
+
+# the inner-block overflow guard of the chunked/TPU forms (S = 16)
+W_CLAMP = float(np.log(160.0 / 18.0))
+
+_ARGTYPES = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor,
+              state: Optional[torch.Tensor] = None,
+              return_state: bool = False):
+    """WKV6 forward.  r, k, v, w: (B, T, H, N) float32 or bfloat16, one
+    dtype; u: (H, N); state: optional (B, H, N, N) f32.  Returns y (B, T, H,
+    N) in r's dtype, and the final f32 state when ``return_state``."""
+    if r.device.type != "cuda":
+        return wkv6_chunked(r, k, v, w, u, state=state,
+                            return_state=return_state)
+    B, T, H, N = r.shape
+    cuda_lib.check_device("wkv6_cuda", r, k, v, w, u,
+                          *([] if state is None else [state]))
+    for name, t in (("k", k), ("v", v), ("w", w)):
+        if t.shape != r.shape or t.dtype != r.dtype:
+            raise ValueError(f"wkv6_cuda: {name} must match r "
+                             f"({tuple(r.shape)}, {r.dtype})")
+    if u.shape != (H, N):
+        raise ValueError(f"wkv6_cuda: u must be ({H}, {N}), got "
+                         f"{tuple(u.shape)}")
+    if N not in (16, 32, 64, 128):
+        raise ValueError(f"wkv6_cuda: head size {N} not in 16/32/64/128")
+    code = cuda_lib.dtype_code(r.dtype)
+    r, k, v, w = (t.contiguous() for t in (r, k, v, w))
+    uf = u.to(torch.float32).contiguous()
+    s0 = None
+    if state is not None:
+        if state.shape != (B, H, N, N):
+            raise ValueError(f"wkv6_cuda: state must be ({B}, {H}, {N}, "
+                             f"{N}), got {tuple(state.shape)}")
+        s0 = state.to(torch.float32).contiguous()
+    y = torch.empty_like(r)
+    s_out = (torch.empty(B, H, N, N, device=r.device, dtype=torch.float32)
+             if return_state else None)
+    lib = cuda_lib.load("wkv6_fwd")
+    fn = lib.pafc_wkv6_fwd
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = fn(code, B, T, H, N, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+             w.data_ptr(), uf.data_ptr(), ptr(s0), y.data_ptr(), ptr(s_out),
+             W_CLAMP, cuda_lib.stream_ptr(r.device))
+    cuda_lib.check(err, "wkv6_fwd")
+    wkv6_cuda.launches += 1
+    return (y, s_out) if return_state else y
+
+
+wkv6_cuda.launches = 0

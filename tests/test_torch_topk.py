@@ -1,0 +1,120 @@
+"""The port's exact selections (K2's reference) against the JAX package.
+
+``top_k_vocab`` and ``stable_top_k`` must pick the same indices as the
+JAX versions, ties included (indices exact, values exact).  The fused joint
+head's plain version (the K2 wrapper on CPU tensors) is held to the JAX
+Pallas kernel in interpret mode: indices exact, values 1e-5 (the product
+and the logsumexp are summed in another order).
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paper_accurate_fast_cheap_tpu.decode.rnnt_search import (
+    top_k_vocab as j_top_k_vocab)
+from paper_accurate_fast_cheap_tpu.ops.topk_pallas import (
+    joint_top_k_vocab_pallas)
+from paper_accurate_fast_cheap_tpu_torch.ops import topk as t_topk
+from paper_accurate_fast_cheap_tpu_torch.ops.joint_topk import (
+    joint_top_k_vocab, joint_top_k_vocab_plain)
+
+
+def _check(x, k):
+    vj, ij = j_top_k_vocab(jnp.asarray(x), k)
+    vt, it = t_topk.top_k_vocab(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
+@pytest.mark.parametrize("shape,k", [
+    ((4, 8, 5002), 8),       # the product point (V = vocab, beam 8)
+    ((2, 3, 2000), 4),       # non-pow2 V
+    ((16, 1537), 8),         # 2-D input, V % 128 != 0
+    ((3, 5, 600), 8),        # V <= 8 * 128: the direct path
+])
+def test_top_k_vocab_random(shape, k):
+    x = (np.random.RandomState(0).randn(*shape) * 5).astype(np.float32)
+    _check(x, k)
+
+
+def test_top_k_vocab_adversarial_ties():
+    # many exact duplicates across chunk boundaries (the JAX kernel test's
+    # pattern): the tie-break rules must agree
+    rng = np.random.default_rng(0)
+    x = rng.integers(-6, 6, size=(8, 8, 2048)).astype(np.float32)
+    _check(x, 8)
+
+
+def test_top_k_vocab_neg_inf_rows_and_lanes():
+    x = np.random.default_rng(1).normal(size=(4, 4, 1664)).astype(np.float32)
+    x[0, 1] = -np.inf                      # dead beam row
+    x[2, :, 700:] = -np.inf                # masked vocab tail
+    _check(x, 6)
+
+
+def test_stable_top_k_matches_lax_top_k():
+    rng = np.random.default_rng(2)
+    x = rng.integers(-3, 3, size=(5, 64)).astype(np.float32)
+    x[0, :40] = -np.inf                    # more -inf than k: index order
+    x[1] = -np.inf
+    vj, ij = jax.lax.top_k(jnp.asarray(x), 8)
+    vt, it = t_topk.stable_top_k(torch.from_numpy(x), 8)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
+@pytest.mark.parametrize("B,N,V,D,tw,cw", [
+    (2, 8, 2048, 128, 0.7, 0.3),
+    (3, 4, 1203, 256, 0.7, 0.3),    # V % 128 != 0 -> -inf pad columns
+    (2, 4, 1280, 128, 1.0, 0.0),    # ctc_weight 0 -> log_cw = -inf
+])
+def test_joint_top_k_matches_jax_pallas(B, N, V, D, tw, cw):
+    rng = np.random.RandomState(10)
+    x = (rng.randn(B * N, D) * 0.5).astype(np.float32)
+    w = (rng.randn(D, V) * 0.2).astype(np.float32)       # flax (in, out)
+    b = (rng.randn(V) * 0.1).astype(np.float32)
+    logits = rng.randn(B, V).astype(np.float32)
+    ctc = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    ltw = math.log(tw) if tw > 0 else -math.inf
+    lcw = math.log(cw) if cw > 0 else -math.inf
+    vj, ij = joint_top_k_vocab_pallas(jnp.asarray(x), jnp.asarray(w),
+                                      jnp.asarray(b), jnp.asarray(ctc), N,
+                                      ltw, lcw)
+    tx, tw_, tb, tc = (torch.from_numpy(a) for a in (x, w.T.copy(), b, ctc))
+    vt, it = joint_top_k_vocab(tx, tw_, tb, tc, N, ltw, lcw)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=1e-5,
+                               atol=1e-5)
+    # a lane-padded, strided ctc (as the beam passes it) gives the same
+    Vp = -(-V // 128) * 128
+    pad = np.full((B, 2, Vp), -np.inf, np.float32)
+    pad[:, 1, :V] = ctc
+    vp, ip = joint_top_k_vocab(tx, tw_, tb, torch.from_numpy(pad)[:, 1], N,
+                               ltw, lcw)
+    np.testing.assert_array_equal(ip.numpy(), it.numpy())
+    np.testing.assert_array_equal(vp.numpy(), vt.numpy())
+
+
+def test_joint_top_k_tie_semantics():
+    """Exact logit ties (duplicated weight rows, equal bias) break to the
+    lowest vocab index, as the JAX kernel does."""
+    B, N, V, D = 2, 4, 1408, 128
+    rng = np.random.default_rng(2)
+    w = rng.normal(size=(D, V)).astype(np.float32)
+    w[:, 400:420] = w[:, 100:120]
+    w[:, 1300:1320] = w[:, 100:120]
+    b = np.zeros((V,), np.float32)
+    x = (rng.normal(size=(B * N, D)) * 0.3).astype(np.float32)
+    ctc = np.full((B, V), -np.log(V), np.float32)     # uniform: ties kept
+    ltw, lcw = float(np.log(0.7)), float(np.log(0.3))
+    _, ij = joint_top_k_vocab_pallas(jnp.asarray(x), jnp.asarray(w),
+                                     jnp.asarray(b), jnp.asarray(ctc), N,
+                                     ltw, lcw)
+    _, it = joint_top_k_vocab_plain(
+        torch.from_numpy(x), torch.from_numpy(w.T.copy()),
+        torch.from_numpy(b), torch.from_numpy(ctc), N, ltw, lcw)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
