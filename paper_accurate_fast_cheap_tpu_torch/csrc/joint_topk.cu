@@ -246,7 +246,7 @@ __global__ void __launch_bounds__(kSelThreads)
   }
 }
 
-template <typename T, typename TC>
+template <typename T>
 int launch(int R, int D, int V, int n_rep, int k, const void* x, const void* w, const void* b,
            const void* ctc, int ctc_ld, float log_tw, float log_cw, float* logits, float* vals,
            int* idx, cudaStream_t stream) {
@@ -259,34 +259,32 @@ int launch(int R, int D, int V, int n_rep, int k, const void* x, const void* w, 
   const int G = Vp / kChunk;
   const size_t smem = (size_t)(Vp + (G > k * kChunk ? G : k * kChunk)) * sizeof(float);
   if (smem > 48 * 1024) {
-    err = (int)cudaFuncSetAttribute(fuse_select_kernel<TC>,
+    err = (int)cudaFuncSetAttribute(fuse_select_kernel<T>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err) return err;
   }
-  fuse_select_kernel<TC><<<R, kSelThreads, smem, stream>>>(V, Vp, n_rep, k, logits,
-                                                           (const TC*)ctc, ctc_ld, log_tw, log_cw,
-                                                           vals, idx);
+  fuse_select_kernel<T><<<R, kSelThreads, smem, stream>>>(V, Vp, n_rep, k, logits,
+                                                          (const T*)ctc, ctc_ld, log_tw, log_cw,
+                                                          vals, idx);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 for x, w (V, D) and b (V); ctc_dtype the
-// same code for ctc (B, ctc_ld) with ctc_ld >= V.  logits is an (R, Vp) f32
-// scratch; vals (R, k) f32 and idx (R, k) int32 are the outputs.
-extern "C" int pafc_joint_topk(int dtype, int ctc_dtype, int R, int D, int V, int n_rep, int k,
-                               const void* x, const void* w, const void* b, const void* ctc,
-                               int ctc_ld, float log_tw, float log_cw, void* logits, void* vals,
-                               void* idx, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 for x, w (V, D), b (V) and ctc (B,
+// ctc_ld) with ctc_ld >= V.  logits is an (R, Vp) f32 scratch; vals (R, k)
+// f32 and idx (R, k) int32 are the outputs.
+extern "C" int pafc_joint_topk(int dtype, int R, int D, int V, int n_rep, int k, const void* x,
+                               const void* w, const void* b, const void* ctc, int ctc_ld,
+                               float log_tw, float log_cw, void* logits, void* vals, void* idx,
+                               void* stream) {
   if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define PAFC_ARGS                                                                             \
   R, D, V, n_rep, k, x, w, b, ctc, ctc_ld, log_tw, log_cw, (float*)logits, (float*)vals,      \
       (int*)idx, st
-  if (dtype == 0 && ctc_dtype == 0) return launch<float, float>(PAFC_ARGS);
-  if (dtype == 0 && ctc_dtype == 1) return launch<float, __nv_bfloat16>(PAFC_ARGS);
-  if (dtype == 1 && ctc_dtype == 0) return launch<__nv_bfloat16, float>(PAFC_ARGS);
-  if (dtype == 1 && ctc_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(PAFC_ARGS);
+  if (dtype == 0) return launch<float>(PAFC_ARGS);
+  if (dtype == 1) return launch<__nv_bfloat16>(PAFC_ARGS);
 #undef PAFC_ARGS
   return (int)cudaErrorInvalidValue;
 }

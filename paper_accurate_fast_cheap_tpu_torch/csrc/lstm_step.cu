@@ -6,8 +6,9 @@
 // Replaces: the JAX package's ops/lstm_pallas.py,
 // `_lstm_step_kernel` via `lstm_predictor_step`.  Numerics follow it: the
 // recurrent state is cast to the compute dtype before the product, biases
-// ride in the compute dtype, new h and c are written in the state dtype
-// (f32 in the beam) and the next layer's input in the compute dtype.
+// ride in the compute dtype, the state is f32 (as the predictor's
+// init_state makes it, also under bf16 weights) and the next layer's input
+// is written in the compute dtype.
 //
 // Bound on the H100 at the flagship beam step (R = 256 rows, E = H = O =
 // 640, L = 2): ~13.9 MB of bf16 weights per step and
@@ -64,18 +65,18 @@ struct GateRows {  // column n = gate (n / UNITS) of unit j0 + n % UNITS
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
-template <typename T, typename TS>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    lstm_layer_kernel(int R, int E, int H, const T* __restrict__ x, const TS* __restrict__ h,
-                      const TS* __restrict__ c, const T* __restrict__ wih,
-                      const T* __restrict__ whh, const T* __restrict__ bias, TS* __restrict__ nh,
-                      TS* __restrict__ nc, T* __restrict__ xo) {
+    lstm_layer_kernel(int R, int E, int H, const T* __restrict__ x, const float* __restrict__ h,
+                      const float* __restrict__ c, const T* __restrict__ wih,
+                      const T* __restrict__ whh, const T* __restrict__ bias, float* __restrict__ nh,
+                      float* __restrict__ nc, T* __restrict__ xo) {
   const int j0 = blockIdx.x * UNITS, m0 = blockIdx.y * BM;
   float acc[TM][4];
   pafc::zero_acc(acc);
   pafc::gemm_tile_nt<BM, 4 * UNITS, BK, TM, 4>(E, Rows<T, T>{x, E, R, m0},
                                                GateRows<T>{wih, E, H, j0}, acc);
-  pafc::gemm_tile_nt<BM, 4 * UNITS, BK, TM, 4>(H, Rows<T, TS>{h, H, R, m0},
+  pafc::gemm_tile_nt<BM, 4 * UNITS, BK, TM, 4>(H, Rows<T, float>{h, H, R, m0},
                                                GateRows<T>{whh, H, H, j0}, acc);
   constexpr int TY = BM / TM;
   const int tx = threadIdx.x % UNITS, ty = threadIdx.x / UNITS;
@@ -92,8 +93,8 @@ __global__ void __launch_bounds__(kThreads)
     const float gg = tanhf(acc[i][2] + bg), og = sigmoidf(acc[i][3] + bo);
     const float cn = fg * to_f32(c[o]) + ig * gg;
     const float hn = og * tanhf(cn);
-    nh[o] = from_f32<TS>(hn);
-    nc[o] = from_f32<TS>(cn);
+    nh[o] = hn;
+    nc[o] = cn;
     xo[o] = from_f32<T>(hn);
   }
 }
@@ -124,7 +125,7 @@ __global__ void __launch_bounds__(kProjThreads)
   }
 }
 
-template <typename T, typename TS>
+template <typename T>
 int launch(int L, int R, int E, int H, int O, const void* x, const void* hs, const void* cs,
            const void* const* wih, const void* const* whh, const void* const* bih,
            const void* wproj, const void* bproj, void* out, void* nhs, void* ncs, void* xbuf,
@@ -135,9 +136,9 @@ int launch(int L, int R, int E, int H, int O, const void* x, const void* hs, con
   int ein = E;
   for (int l = 0; l < L; ++l) {
     T* xo = (T*)xbuf + l * RH;
-    lstm_layer_kernel<T, TS><<<grid, kThreads, 0, stream>>>(
-        R, ein, H, xin, (const TS*)hs + l * RH, (const TS*)cs + l * RH, (const T*)wih[l],
-        (const T*)whh[l], (const T*)bih[l], (TS*)nhs + l * RH, (TS*)ncs + l * RH, xo);
+    lstm_layer_kernel<T><<<grid, kThreads, 0, stream>>>(
+        R, ein, H, xin, (const float*)hs + l * RH, (const float*)cs + l * RH, (const T*)wih[l],
+        (const T*)whh[l], (const T*)bih[l], (float*)nhs + l * RH, (float*)ncs + l * RH, xo);
     const int err = (int)cudaGetLastError();
     if (err) return err;
     xin = xo;
@@ -153,21 +154,19 @@ int launch(int L, int R, int E, int H, int O, const void* x, const void* hs, con
 
 // dtype: 0 = float32, 1 = bfloat16 for x (R, E), the weights (nn.Linear
 // layout: W_ih (4H, E|H), W_hh (4H, H), b (4H), W_proj (O, H), b_proj (O))
-// and out (R, O); state_dtype the same code for hs, cs, nhs, ncs (L, R, H).
-// xbuf is an (L, R, H) scratch in the compute dtype.
-extern "C" int pafc_lstm_step(int dtype, int state_dtype, int L, int R, int E, int H, int O,
-                              const void* x, const void* hs, const void* cs,
-                              const void* const* wih, const void* const* whh,
-                              const void* const* bih, const void* wproj, const void* bproj,
-                              void* out, void* nhs, void* ncs, void* xbuf, void* stream) {
+// and out (R, O); the state hs, cs, nhs, ncs (L, R, H) is float32.  xbuf is
+// an (L, R, H) scratch in the compute dtype.
+extern "C" int pafc_lstm_step(int dtype, int L, int R, int E, int H, int O, const void* x,
+                              const void* hs, const void* cs, const void* const* wih,
+                              const void* const* whh, const void* const* bih, const void* wproj,
+                              const void* bproj, void* out, void* nhs, void* ncs, void* xbuf,
+                              void* stream) {
   if (L < 1 || L > kMaxLayers) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define PAFC_ARGS \
   L, R, E, H, O, x, hs, cs, wih, whh, bih, wproj, bproj, out, nhs, ncs, xbuf, st
-  if (dtype == 0 && state_dtype == 0) return launch<float, float>(PAFC_ARGS);
-  if (dtype == 0 && state_dtype == 1) return launch<float, __nv_bfloat16>(PAFC_ARGS);
-  if (dtype == 1 && state_dtype == 0) return launch<__nv_bfloat16, float>(PAFC_ARGS);
-  if (dtype == 1 && state_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(PAFC_ARGS);
+  if (dtype == 0) return launch<float>(PAFC_ARGS);
+  if (dtype == 1) return launch<__nv_bfloat16>(PAFC_ARGS);
 #undef PAFC_ARGS
   return (int)cudaErrorInvalidValue;
 }

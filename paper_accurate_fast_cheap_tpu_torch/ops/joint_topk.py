@@ -18,7 +18,7 @@ from paper_accurate_fast_cheap_tpu_torch.ops import cuda_lib
 from paper_accurate_fast_cheap_tpu_torch.ops.topk import top_k_vocab
 
 LANES = 128
-_ARGTYPES = ([ctypes.c_int] * 7 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+_ARGTYPES = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
              + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 4)
 
 
@@ -58,8 +58,9 @@ def joint_top_k_vocab(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Fused joint head + CTC shallow fusion + exact top-k.
 
     x: (B*N, D) pre-head joint activation; w: (V, D) and b: (V,), the
-    ``ffn_out`` Linear (same dtype as x); ctc: (B, >= V) CTC log-probs
-    (extra columns, e.g. a -inf lane pad, are ignored; rows may be strided).
+    ``ffn_out`` Linear; ctc: (B, >= V) CTC log-probs (extra columns, e.g.
+    a -inf lane pad, are ignored; rows may be strided).  On the card all
+    four share one dtype.
     Returns ((B, N, k) f32 values, (B, N, k) int32 vocab ids) of
 
         logaddexp(log_tw + log_softmax(x @ w.T + b), log_cw + ctc[row // N])
@@ -68,13 +69,13 @@ def joint_top_k_vocab(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return joint_top_k_vocab_plain(x, w, b, ctc, k, log_tw, log_cw)
     R, D, V, B, n_rep = _check_shapes(x, w, b, ctc, k)
     cuda_lib.check_device("joint_top_k_vocab", x, w, b, ctc)
-    if w.dtype != x.dtype or b.dtype != x.dtype:
-        raise ValueError(f"joint_top_k_vocab: x, w, b must share a dtype "
-                         f"({x.dtype}, {w.dtype}, {b.dtype})")
+    if not x.dtype == w.dtype == b.dtype == ctc.dtype:
+        raise ValueError(f"joint_top_k_vocab: x, w, b, ctc must share a "
+                         f"dtype ({x.dtype}, {w.dtype}, {b.dtype}, "
+                         f"{ctc.dtype})")
     if ctc.stride(1) != 1:
         raise ValueError("joint_top_k_vocab: ctc rows must be contiguous")
-    code, ctc_code = cuda_lib.dtype_code(x.dtype), cuda_lib.dtype_code(
-        ctc.dtype)
+    code = cuda_lib.dtype_code(x.dtype)
     x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
     Vp = -(-V // LANES) * LANES
     logits = torch.empty(R, Vp, device=x.device, dtype=torch.float32)
@@ -82,7 +83,7 @@ def joint_top_k_vocab(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     idx = torch.empty(R, k, device=x.device, dtype=torch.int32)
     fn = cuda_lib.load("joint_topk").pafc_joint_topk
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(code, ctc_code, R, D, V, n_rep, k, x.data_ptr(), w.data_ptr(),
+    err = fn(code, R, D, V, n_rep, k, x.data_ptr(), w.data_ptr(),
              b.data_ptr(), ctc.data_ptr(), ctc.stride(0), float(log_tw),
              float(log_cw), logits.data_ptr(), vals.data_ptr(),
              idx.data_ptr(), cuda_lib.stream_ptr(x.device))

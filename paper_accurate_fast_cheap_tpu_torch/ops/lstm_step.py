@@ -14,7 +14,7 @@ import torch
 
 from paper_accurate_fast_cheap_tpu_torch.ops import cuda_lib
 
-_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 13
+_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 13
 
 
 def lstm_step_plain(x, hs, cs, layers, wproj, bproj):
@@ -42,7 +42,8 @@ def lstm_predictor_step(x: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
                         layers, wproj: torch.Tensor, bproj: torch.Tensor):
     """One predictor step.
 
-    x: (R, E) embedded last tokens; hs, cs: (L, R, H) stacked states;
+    x: (R, E) embedded last tokens; hs, cs: (L, R, H) stacked states
+    (float32 on the card, as ``RNNPredictor.init_state`` makes them);
     ``layers``: L tuples (wih (4H, E|H), bih (4H,), whh (4H, H)) in
     nn.Linear layout; wproj (O, H), bproj (O,).  Returns (out (R, O),
     new_hs, new_cs).
@@ -56,12 +57,13 @@ def lstm_predictor_step(x: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
     if hs.shape != (L, R, H) or cs.shape != (L, R, H):
         raise ValueError(f"lstm_predictor_step: hs/cs must be ({L}, {R}, "
                          f"{H}), got {tuple(hs.shape)}, {tuple(cs.shape)}")
-    if hs.dtype != cs.dtype:
-        raise ValueError("lstm_predictor_step: hs and cs must share a dtype")
+    if hs.dtype != torch.float32 or cs.dtype != torch.float32:
+        raise ValueError("lstm_predictor_step: hs and cs must be float32 on "
+                         f"the card, got {hs.dtype}, {cs.dtype}")
     cuda_lib.check_device("lstm_predictor_step", x, hs, cs, wproj, bproj,
                           *(t for lay in layers for t in lay))
     dt = x.dtype
-    code, scode = cuda_lib.dtype_code(dt), cuda_lib.dtype_code(hs.dtype)
+    code = cuda_lib.dtype_code(dt)
     keep = []  # tensors whose pointers the kernel reads
 
     def ptr(t, shape):
@@ -86,7 +88,7 @@ def lstm_predictor_step(x: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
     xbuf = torch.empty(L, R, H, device=x.device, dtype=dt)
     fn = cuda_lib.load("lstm_step").pafc_lstm_step
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(code, scode, L, R, E, H, O, x.data_ptr(), hs.data_ptr(),
+    err = fn(code, L, R, E, H, O, x.data_ptr(), hs.data_ptr(),
              cs.data_ptr(), wih_p, whh_p, bih_p, wp, bp, out.data_ptr(),
              nhs.data_ptr(), ncs.data_ptr(), xbuf.data_ptr(),
              cuda_lib.stream_ptr(x.device))

@@ -13,7 +13,8 @@ with ``decay_t = exp(-exp(w_t))``.
   (inner blocks of 16 steps with midpoint-recentred factors, block states
   inside an outer chunk, a carried state across chunks).  It clamps
   ``w <= log(160 / 18)``, as the TPU kernels do, and is the plain version
-  of the CUDA kernel in ``ops/wkv6_cuda.py``.
+  of the CUDA kernel in ``ops/wkv6_cuda.py``, whose ``wkv6_cuda`` is the
+  one entry the model calls.
 
 Both take (B, T, H, N) tensors, accumulate in f32 and return y in the dtype
 of ``r`` (and the final (B, H, N, N) f32 state when ``return_state``).
@@ -138,21 +139,3 @@ def wkv6_chunked(r, k, v, w, u, state: Optional[torch.Tensor] = None,
     y = y.reshape(B, Tp, H, N)[:, :T].to(out_dtype)
     return (y, S) if return_state else y
 
-
-def wkv6(r, k, v, w, u, state: Optional[torch.Tensor] = None,
-         chunk_size: int = 256, return_state: bool = False,
-         impl: str = "chunked"):
-    """Forward dispatcher.  impl: 'chunked' (default) | 'ref' | 'kernel'
-    (``ops/wkv6_cuda.wkv6_cuda``: the CUDA kernel for a CUDA tensor, the
-    chunked plain version for a CPU one)."""
-    if impl == "ref":
-        return wkv6_ref(r, k, v, w, u, state=state, return_state=return_state)
-    if impl == "chunked":
-        return wkv6_chunked(r, k, v, w, u, state=state, chunk_size=chunk_size,
-                            return_state=return_state)
-    if impl == "kernel":
-        from paper_accurate_fast_cheap_tpu_torch.ops.wkv6_cuda import wkv6_cuda
-
-        return wkv6_cuda(r, k, v, w, u, state=state,
-                         return_state=return_state)
-    raise ValueError(f"unknown wkv6 impl: {impl!r}")

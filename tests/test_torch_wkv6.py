@@ -90,21 +90,23 @@ def test_streaming_split_matches_one_pass():
 
 @pytest.mark.parametrize("impl", ["ref", "chunked", "kernel"])
 def test_dispatcher_and_kernel_wrapper_on_cpu(impl):
-    """On CPU tensors the K1 wrapper is its plain (chunked) version; the
-    dispatcher's three impls agree where the decay clamp is not reached."""
+    """The plain versions and the K1 wrapper (the model's one WKV entry,
+    which runs the chunked plain version on CPU tensors) agree where the
+    decay clamp is not reached."""
+    fn = {"ref": t_wkv6.wkv6_ref, "chunked": t_wkv6.wkv6_chunked,
+          "kernel": wkv6_cuda}[impl]
     r, k, v, w, u, s0 = _inputs(4, T=30, state=True)
     w = np.minimum(w, 1.0)
     args = _t(r, k, v, w, u)
-    y, s = t_wkv6.wkv6(*args, state=_t(s0)[0], return_state=True, impl=impl)
+    before = wkv6_cuda.launches
+    y, s = fn(*args, state=_t(s0)[0], return_state=True)
+    assert wkv6_cuda.launches == before         # the CPU path counts nothing
     y0, s0_ = t_wkv6.wkv6_ref(*args, state=_t(s0)[0], return_state=True)
     np.testing.assert_allclose(y.numpy(), y0.numpy(), atol=2e-5)
     np.testing.assert_allclose(s.numpy(), s0_.numpy(), atol=2e-5)
     if impl == "kernel":
-        before = wkv6_cuda.launches
-        yk = wkv6_cuda(*args)
-        assert wkv6_cuda.launches == before     # the CPU path counts nothing
         np.testing.assert_array_equal(
-            yk.numpy(), t_wkv6.wkv6_chunked(*args).numpy())
+            wkv6_cuda(*args).numpy(), t_wkv6.wkv6_chunked(*args).numpy())
 
 
 def test_common_helpers_match_jax():
