@@ -9,9 +9,15 @@ Phases, each fatal on failure (no phase is skipped or caught):
      shapes the main path gives it, in float32 and bfloat16, with its time,
      the plain version's time, a library yardstick where one exists, and
      the least time the card could take (bound);
-  4. the main path at the flagship's full width: random weights from a
+  4. reference: a small f32 decode of the flagship (standard joint, under
+     the beam's three top-k routes) and of its HAT twin, the card against
+     the CPU;
+  5. the main path at the flagship's full width: random weights from a
      seed, synthetic audio, fbank -> CMVN -> encoder -> CTC -> prefix beam
      (beam 8) -> finalize, with the kernels' launch counters checked;
+  6. the recognize_wav CLI at full width, 32 x 90 s windows of one WAV, for
+     the HAT and the standard flagship, with the counters, the TXT and the
+     CTM checked;
 then one JSON line with every kernel's numbers and, last, the result line.
 
 Usage: python3 chip_smoke.py [--batch 32] [--kernels-only]
@@ -20,11 +26,15 @@ Exits non-zero without a result when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import wave
 
 import numpy as np
 
@@ -32,9 +42,16 @@ import numpy as np
 # bf16 tensor-core rate.
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+# float32 outside the tensor cores (CUDA cores), same data sheet
+PEAK_F32_FLOPS = 67e12
 # The main path's window: 90 s of 16 kHz audio, 2248 encoder frames (the
 # bench.py geometry).  Only the batch may be cut, never the window.
 WINDOW_S = 90
+# The CLI's windows: 8998 fbank frames (89.995 s), the same 2248 encoder
+# frames after the conv2d /4 subsampling; 32 of them fill one batch.
+CLI_CHUNK = 8998
+CLI_FRAMES = ((CLI_CHUNK - 1) // 2 - 1) // 2
+CLI_WINDOWS = 32
 
 
 def log(msg: str) -> None:
@@ -63,12 +80,16 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_device():
+def phase_device() -> str:
     line = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     log(line)
+    # the CLI reads YAML configs only through PyYAML; this script's configs
+    # are JSON, so its path never needs it
+    log(f"PyYAML importable: {importlib.util.find_spec('yaml') is not None}")
+    return line
 
 
 def phase_build():
@@ -284,6 +305,137 @@ def check_lstm(g):
                 max_abs_err_f32=errs[torch.float32]), ok_all
 
 
+def check_fused_topk(g):
+    """K4 at one beam frame of the HAT flagship: R = 32 x beam 8 rows."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.ops import fused_topk as K
+
+    B, N, V = 32, 8, 5002
+    R = B * N
+    log_tw, log_cw = float(np.log(0.7)), float(np.log(0.3))
+    bias = torch.zeros(V, device="cuda")
+    bias[0] += 2.5
+    logp = torch.log_softmax(_randn((R, V), g, 2.0) + bias, -1)
+    ctc_full = torch.log_softmax(_randn((B, 3, V), g, 2.0) + bias, -1)
+    res, ok_all = {}, True
+    # f32 and bf16 inputs: kernel and plain fuse the same (upcast) values
+    # in f32; the gap is expf/log1pf against torch.logaddexp's rounding,
+    # a few ulps of O(10) scores: values 1e-6 abs + 1e-6 rel.
+    for dt in (torch.float32, torch.bfloat16):
+        lp, ctc = logp.to(dt), ctc_full.to(dt)[:, 1]  # strided, as in the beam
+        vk, ik = K.fused_top_k_vocab(lp, ctc, N, log_tw, log_cw)
+        vp, ip = K.fused_top_k_vocab_plain(lp, ctc, N, log_tw, log_cw)
+        fused = torch.logaddexp(
+            log_tw + lp.float(),
+            log_cw + ctc.float().repeat_interleave(N, 0)).reshape(B, N, V)
+        verr, n_mis, ok = _topk_agree(vk, ik, vp, ip, fused, 1e-6)
+        ok_all = ok_all and ok
+        log(f"K4 fused_topk {str(dt)[6:]}: values max_abs_err {verr:.3e} "
+            f"<= 1e-6 (+1e-6 rel), index mismatches {n_mis} (near-ties "
+            f"only) {'ok' if ok else 'FAIL'}")
+        res[dt] = verr
+    # exact ties: duplicated logp blocks across chunk boundaries and a
+    # uniform CTC row; indices must equal the plain version's exactly
+    lt = logp.clone()
+    lt[:, 400:420] = lt[:, 100:120]
+    lt[:, 4300:4320] = lt[:, 100:120]
+    ct = torch.full((B, V), -float(np.log(V)), device="cuda")
+    vk, ik = K.fused_top_k_vocab(lt, ct, N, log_tw, log_cw)
+    vp, ip = K.fused_top_k_vocab_plain(lt, ct, N, log_tw, log_cw)
+    ties_ok = bool((ik == ip).all()) and bool(
+        ((vk - vp).abs() <= 1e-6 + 1e-6 * vp.abs()).all())
+    ok_all = ok_all and ties_ok
+    log(f"K4 fused_topk ties: indices identical {'ok' if ties_ok else 'FAIL'}")
+    lb, cb = logp.bfloat16(), ctc_full.bfloat16()[:, 1]
+    ms = cuda_time_ms(lambda: K.fused_top_k_vocab(lb, cb, N, log_tw, log_cw),
+                      50)
+    plain_ms = cuda_time_ms(
+        lambda: K.fused_top_k_vocab_plain(lb, cb, N, log_tw, log_cw), 20)
+
+    def library():  # yardstick only: logaddexp + beam repeat + torch.topk
+        fused = torch.logaddexp(log_tw + lb.float(),
+                                log_cw + cb.float().repeat_interleave(N, 0))
+        return torch.topk(fused.reshape(B, N, V), N)
+
+    lib_ms = cuda_time_ms(library, 50)
+    # logp and the B CTC rows read once, R x k (value, index) written; ~6
+    # f32 operations per score (two adds, max, |a-b|, exp, log1p)
+    nbytes = (R * V + B * V) * 2 + R * N * 8
+    bms, by = bound_ms(nbytes, 6 * R * V, PEAK_F32_FLOPS)
+    log(f"K4 fused_topk bf16 (R={R}, V={V}, k={N}): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by})")
+    return dict(name="fused_topk", max_abs_err=res[torch.bfloat16], ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms,
+                max_abs_err_f32=res[torch.float32]), ok_all
+
+
+def check_topk(g):
+    """K5 at one beam frame of the xla route: the (32, 8, 5002) fused
+    scores, and the JAX kernel tests' tie patterns."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.ops import topk as K
+
+    B, N, V = 32, 8, 5002
+    x = torch.logaddexp(
+        float(np.log(0.7)) + torch.log_softmax(_randn((B, N, V), g, 2.0), -1),
+        float(np.log(0.3)) + torch.log_softmax(_randn((B, 1, V), g, 2.0), -1))
+    rng = np.random.default_rng(0)
+    ties = torch.from_numpy(
+        rng.integers(-6, 6, size=(8, 8, 2048)).astype(np.float32)).cuda()
+    dead = torch.from_numpy(
+        rng.normal(size=(4, 4, 1664)).astype(np.float32)).cuda()
+    dead[0, 1] = -float("inf")               # dead beam row
+    dead[2, :, 700:] = -float("inf")         # masked vocab tail
+    cases = [("scores f32", x, N), ("scores bf16", x.bfloat16(), N),
+             ("integer ties", ties, 8), ("-inf rows/tails", dead, 6),
+             ("direct V=600", x[..., :600].contiguous(), N)]
+    ok_all, err = True, 0.0
+    # no arithmetic: the kernel selects the plain version's very values,
+    # so values and indices must be identical
+    for name, xc, k in cases:
+        vk, ik = K.top_k_vocab(xc, k)
+        vp, ip = K.top_k_vocab_plain(xc, k)
+        e = float((vk - vp.float()).abs().nan_to_num(0.0).max())
+        ok = bool((ik == ip).all()) and bool(
+            ((vk == vp.float()) | (vk.isinf() & vp.isinf())).all())
+        err = max(err, e)
+        ok_all = ok_all and ok
+        log(f"K5 topk {name} {tuple(xc.shape)} k={k}: identical values and "
+            f"indices {'ok' if ok else 'FAIL'}")
+    ms = cuda_time_ms(lambda: K.top_k_vocab(x, N), 50)
+    plain_ms = cuda_time_ms(lambda: K.top_k_vocab_plain(x, N), 20)
+    lib_ms = cuda_time_ms(lambda: torch.topk(x, N), 50)
+    R = B * N
+    nbytes = R * V * 4 + R * N * 8
+    bms, by = bound_ms(nbytes, R * V, PEAK_F32_FLOPS)
+    log(f"K5 topk f32 (R={R}, V={V}, k={N}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bms:.4f} ms "
+        f"({by})")
+    return dict(name="topk", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms), ok_all
+
+
+def log_unported_bounds() -> None:
+    """The bounds of the TPU kernels still to port, from their shapes."""
+    # K6 (ops/ffn_pallas.py): the flagship macaron FFN, x (32 x 2248 rows,
+    # 512) -> 2048 -> 512 in bf16, 2 per block x 12 blocks per forward
+    rows, d, h = 32 * 2248, 512, 2048
+    b6, by6 = bound_ms((2 * rows * d + 2 * d * h + h + d) * 2,
+                       2 * 2 * rows * d * h, PEAK_BF16_FLOPS)
+    # K7 (tools/repro_tpu_worker_crash.py pinned_call) at the tool's
+    # defaults: x (4096, 512) @ 2 buffers of (512, 5120) bf16, bf16 out
+    r7, buffers, h7 = 4096, 2, 5120
+    b7, by7 = bound_ms((r7 * d + buffers * d * h7 + r7 * h7) * 2,
+                       2 * r7 * d * h7 * buffers, PEAK_BF16_FLOPS)
+    log(f"bounds, kernels to port: K6 ffn ({rows}x{d}->{h}->{d} bf16) "
+        f"{b6:.4f} ms ({by6}), 24 per encoder forward; K7 pinned_call "
+        f"({r7}x{d} @ {buffers}x{d}x{h7} bf16) {b7:.4f} ms ({by7})")
+
+
 KERNELS = {
     "wkv6_fwd": ("paper_accurate_fast_cheap_tpu_torch/csrc/wkv6_fwd.cu",
                  "paper_accurate_fast_cheap_tpu/ops/wkv6_pallas.py:906"),
@@ -291,6 +443,10 @@ KERNELS = {
                    "paper_accurate_fast_cheap_tpu/ops/topk_pallas.py:299"),
     "lstm_step": ("paper_accurate_fast_cheap_tpu_torch/csrc/lstm_step.cu",
                   "paper_accurate_fast_cheap_tpu/ops/lstm_pallas.py:117"),
+    "fused_topk": ("paper_accurate_fast_cheap_tpu_torch/csrc/fused_topk.cu",
+                   "paper_accurate_fast_cheap_tpu/ops/topk_pallas.py:187"),
+    "topk": ("paper_accurate_fast_cheap_tpu_torch/csrc/topk.cu",
+             "paper_accurate_fast_cheap_tpu/ops/topk_pallas.py:127"),
 }
 
 
@@ -319,23 +475,65 @@ CONFIG = {
 }
 
 
-def build_model():
-    """The flagship at full width, random weights from a seed, blank bias
-    +2.5 on both output heads (a speech-like emission rate, as bench.py)."""
+# The HAT twin: the same encoder and predictor, the joint's HAT head.
+HAT_CONFIG = dict(CONFIG, joint_conf={"join_dim": 640, "hat_joint": True})
+
+
+def build_model(hat: bool = False):
+    """The flagship (or its HAT twin) at full width, random weights from a
+    seed, blank bias +2.5 on both output heads (a speech-like emission
+    rate, as bench.py).  HAT's blank is a sigmoid, not one logit of a
+    V-way softmax: the same blank share takes the logit 2.5 - log(V - 1)."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.models import factory
 
     t0 = time.perf_counter()
-    model, _ = factory.init_model(CONFIG, VOCAB, 80,
-                                  generator=torch.Generator().manual_seed(1))
+    model, _ = factory.init_model(
+        HAT_CONFIG if hat else CONFIG, VOCAB, 80,
+        generator=torch.Generator().manual_seed(2 if hat else 1))
     with torch.no_grad():
-        model.joint.ffn_out.bias[0] += 2.5
+        if hat:
+            model.joint.blank_pred.bias[0] += 2.5 - float(np.log(VOCAB - 1))
+        else:
+            model.joint.ffn_out.bias[0] += 2.5
         model.ctc.ctc_lo.bias[0] += 2.5
     n = sum(p.numel() for p in model.parameters())
-    log(f"model: flagship transducer, {n / 1e6:.1f} M parameters, built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"model: {'HAT' if hat else 'flagship'} transducer, {n / 1e6:.1f} M "
+        f"parameters, built in {time.perf_counter() - t0:.1f} s")
     return model
+
+
+def counters():
+    """Every kernel wrapper of the decode path, by kernel name."""
+    from paper_accurate_fast_cheap_tpu_torch.ops import (
+        fused_topk, joint_topk, lstm_step, topk, wkv6_cuda)
+
+    return {"wkv6_fwd": wkv6_cuda.wkv6_cuda,
+            "joint_topk": joint_topk.joint_top_k_vocab,
+            "lstm_step": lstm_step.lstm_predictor_step,
+            "fused_topk": fused_topk.fused_top_k_vocab,
+            "topk": topk.top_k_vocab}
+
+
+def zero_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def beam(model, enc, elens, logp, topk_impl="auto"):
+    """The device prefix beam (beam 8, CTC 0.3 / transducer 0.7), deferred:
+    returns the carry."""
+    from paper_accurate_fast_cheap_tpu_torch.decode import rnnt_search
+
+    return rnnt_search.rnnt_beam_search(
+        *rnnt_search.make_transducer_step_fns(model), enc, elens, logp,
+        beam_size=BEAM, ctc_weight=0.3, transducer_weight=0.7,
+        impl="device", defer=True, topk_impl=topk_impl)
 
 
 def decode(model, featurize, wavs, lens, stages=None):
@@ -360,10 +558,7 @@ def decode(model, featurize, wavs, lens, stages=None):
     enc, elens = model.forward_encoder(feats, flens)
     logp = model.ctc_logprobs(enc)
     mark()
-    carry = rnnt_search.rnnt_beam_search(
-        *rnnt_search.make_transducer_step_fns(model), enc, elens, logp,
-        beam_size=BEAM, ctc_weight=0.3, transducer_weight=0.7,
-        impl="device", defer=True)
+    carry = beam(model, enc, elens, logp)
     mark()
     res = rnnt_search.finalize_device_beam(
         rnnt_search.pack_device_beam(carry), beam=BEAM)
@@ -375,13 +570,17 @@ def decode(model, featurize, wavs, lens, stages=None):
     return res, enc, logp, carry
 
 
-def phase_reference(model, rng):
+def phase_reference(model, hat_model, rng):
     """Small input, f32: the card (kernels) against the CPU (plain versions,
-    which the CPU tests hold to the JAX package)."""
+    which the CPU tests hold to the JAX package), for the flagship under
+    the beam's three top-k routes and for its HAT twin under ``auto`` (its
+    only route, K4's).  Returns (ok, K5's launches in the card's ``xla``
+    route)."""
     import copy
 
     import torch
 
+    from paper_accurate_fast_cheap_tpu_torch.decode import rnnt_search
     from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
     from paper_accurate_fast_cheap_tpu_torch.models.rwkv import RWKVAttention
 
@@ -390,35 +589,71 @@ def phase_reference(model, rng):
     lens = np.asarray([S, S - 8000], np.int64)
     stats = _cmvn_stats(pipeline.make_feature_fn({}, None, device="cpu"),
                         torch.from_numpy(wavs), torch.from_numpy(lens))
-    cpu = copy.deepcopy(model).to("cpu")
-    # the whole model in f32 (the flagship casts RWKV inputs to bf16, whose
-    # rounding differs between the CPU and the card)
-    for m in list(model.modules()) + list(cpu.modules()):
-        if isinstance(m, RWKVAttention):
-            m.do_bfloat16 = False
-    out = {}
-    for name, m, dev in (("cuda", model, "cuda"), ("cpu", cpu, "cpu")):
+    cases = (("standard", model, ("pallas_joint", "pallas", "xla")),
+             ("HAT", hat_model, ("auto",)))
+    out, ok, k5_launches = {}, True, 0
+    for dev in ("cuda", "cpu"):
         fz = pipeline.make_feature_fn({}, stats, device=dev)
-        res, enc, logp, _ = decode(m, fz, torch.from_numpy(wavs).to(dev),
-                                   torch.from_numpy(lens).to(dev))
-        out[name] = (res, enc.float().cpu(), logp.float().cpu())
-    (rg, eg, lg), (rc, ec, lc) = out["cuda"], out["cpu"]
-    enc_err = float((eg - ec).abs().max())
-    ctc_err = float((lg - lc).abs().max())
-    same = all(a.tokens == b.tokens for a, b in zip(rg, rc))
-    score_ok = all(np.allclose(a.nbest_scores[:1], b.nbest_scores[:1],
-                               rtol=1e-4) for a, b in zip(rg, rc))
-    # f32 on both sides: summation order only (cuBLAS/cuDNN without TF32,
-    # the kernels' own sums): 1e-3 on O(1) encoder outputs and log-probs
-    ok = enc_err <= 1e-3 and ctc_err <= 1e-3 and same and score_ok
-    log(f"reference (B={B}, 3 s, f32, card vs CPU plain): encoder "
-        f"max_abs_err {enc_err:.3e}, ctc {ctc_err:.3e} (<= 1e-3), tokens "
-        f"identical {same}, best scores within 1e-4 rel {score_ok}, "
-        f"tokens {[r.tokens for r in rg]} {'ok' if ok else 'FAIL'}")
-    for m in model.modules():
-        if isinstance(m, RWKVAttention):
-            m.do_bfloat16 = True
-    return ok
+        for label, m, routes in cases:
+            if dev == "cpu":
+                m = copy.deepcopy(m).to("cpu")
+            # the whole model in f32 (the flagship casts RWKV inputs to
+            # bf16, whose rounding differs between the CPU and the card)
+            for mod in m.modules():
+                if isinstance(mod, RWKVAttention):
+                    mod.do_bfloat16 = False
+            feats, flens = fz(torch.from_numpy(wavs).to(dev),
+                              torch.from_numpy(lens).to(dev))
+            enc, elens = m.forward_encoder(feats, flens)
+            logp = m.ctc_logprobs(enc)
+            for route in routes:
+                zero_counts()
+                res = rnnt_search.finalize_device_beam(
+                    beam(m, enc, elens, logp, route))
+                counts = read_counts()
+                if dev == "cuda" and route == "xla":
+                    k5_launches = counts["topk"]
+                if dev == "cuda":
+                    log(f"reference {label} {route}: card counters "
+                        f"{json.dumps(counts)}")
+                out[dev, label, route] = (res, enc.float().cpu(),
+                                          logp.float().cpu())
+            for mod in m.modules():
+                if isinstance(mod, RWKVAttention):
+                    mod.do_bfloat16 = True
+    for label, _, routes in cases:
+        for route in routes:
+            (rg, eg, lg), (rc, ec, lc) = (out["cuda", label, route],
+                                          out["cpu", label, route])
+            enc_err = float((eg - ec).abs().max())
+            ctc_err = float((lg - lc).abs().max())
+            same = all(a.tokens == b.tokens for a, b in zip(rg, rc))
+            score_ok = all(np.allclose(a.nbest_scores[:1],
+                                       b.nbest_scores[:1], rtol=1e-4)
+                           for a, b in zip(rg, rc))
+            # f32 on both sides: summation order only (cuBLAS/cuDNN without
+            # TF32, the kernels' own sums): 1e-3 on O(1) encoder outputs
+            # and log-probs
+            good = (enc_err <= 1e-3 and ctc_err <= 1e-3 and same
+                    and score_ok and any(r.tokens for r in rg))
+            ok = ok and good
+            log(f"reference {label} {route} (B={B}, 3 s, f32, card vs CPU "
+                f"plain): encoder max_abs_err {enc_err:.3e}, ctc "
+                f"{ctc_err:.3e} (<= 1e-3), tokens identical {same}, best "
+                f"scores within 1e-4 rel {score_ok}, tokens per utterance "
+                f"{[len(r.tokens) for r in rg]} {'ok' if good else 'FAIL'}")
+    # pallas (K4) and xla (K5) fuse and select the same log-probs: the
+    # same tokens, best scores within 1e-5 rel (logaddexp rounding)
+    rp, rx = out["cuda", "standard", "pallas"][0], out["cuda", "standard",
+                                                        "xla"][0]
+    same = all(a.tokens == b.tokens for a, b in zip(rp, rx))
+    close = all(np.allclose(a.nbest_scores[:1], b.nbest_scores[:1],
+                            rtol=1e-5) for a, b in zip(rp, rx))
+    ok = ok and same and close and k5_launches > 0
+    log(f"reference pallas vs xla on the card: tokens identical {same}, best "
+        f"scores within 1e-5 rel {close}, K5 launches {k5_launches} "
+        f"{'ok' if same and close and k5_launches > 0 else 'FAIL'}")
+    return ok, k5_launches
 
 
 def _cmvn_stats(featurize, wavs, lens):
@@ -433,8 +668,6 @@ def phase_main(model, rng, batch):
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
-    from paper_accurate_fast_cheap_tpu_torch.ops import (
-        joint_topk, lstm_step, wkv6_cuda)
 
     S = WINDOW_S * 16000
     wavs = torch.from_numpy((rng.randn(batch, S) * 0.1).astype(np.float32))
@@ -449,20 +682,17 @@ def phase_main(model, rng, batch):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    for fn in (wkv6_cuda.wkv6_cuda, joint_topk.joint_top_k_vocab,
-               lstm_step.lstm_predictor_step):
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     t0 = time.perf_counter()
     stages = {}
     res, enc, logp, carry = decode(model, featurize, wavs, lens, stages)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"wkv6_fwd": wkv6_cuda.wkv6_cuda.launches,
-              "joint_topk": joint_topk.joint_top_k_vocab.launches,
-              "lstm_step": lstm_step.lstm_predictor_step.launches}
+    counts = read_counts()
     frames = enc.shape[1]
-    want = {"wkv6_fwd": 24, "joint_topk": frames, "lstm_step": frames + 1}
+    want = {"wkv6_fwd": 24, "joint_topk": frames, "lstm_step": frames + 1,
+            "fused_topk": 0, "topk": 0}
     audio_s = batch * WINDOW_S
     ntok = float(np.mean([len(r.tokens) for r in res]))
     hyps = carry["hyps"]
@@ -483,8 +713,152 @@ def phase_main(model, rng, batch):
         + f"; beam per frame {stages['beam'] / frames * 1e3:.4f} ms")
     log(f"launch counters {json.dumps(counts)}, expected {json.dumps(want)}; "
         f"shapes {shape_ok}, finite {finite}, token ids in range {ids_ok}")
-    ok = counts == want and shape_ok and finite and ids_ok and ntok > 0
+    ok = (counts == want and shape_ok and finite and ids_ok and ntok > 0
+          and frames == CLI_FRAMES)
     return ok, counts
+
+
+def write_cli_inputs(d: str, rng, models) -> dict:
+    """A seeded 16 kHz 16-bit WAV of exactly CLI_WINDOWS windows, a
+    whitespace symbol table of VOCAB pieces, global CMVN stats of the
+    WAV's first windows, and per model its f32 state_dict and JSON
+    config.  Returns the paths."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
+
+    n = (CLI_WINDOWS * CLI_CHUNK - 1) * 160 + 400
+    pcm = np.clip(rng.randn(n) * 0.1 * 32768, -32768, 32767).astype(np.int16)
+    paths = {"wav": os.path.join(d, "episode.wav"), "audio_s": n / 16000.0}
+    with wave.open(paths["wav"], "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    units = os.path.join(d, "units.txt")
+    with open(units, "w") as f:
+        f.write("<blank> 0\n<unk> 1\n")
+        for i in range(2, VOCAB - 1):
+            f.write(f"{'▁w' if i % 3 == 0 else 'p'}{i} {i}\n")
+        f.write(f"<sos/eos> {VOCAB - 1}\n")
+    head = torch.from_numpy(pcm[: 4 * CLI_CHUNK * 160].astype(np.float32)
+                            / 32768.0)[None]
+    feats, _ = pipeline.make_feature_fn({}, None)(
+        head, torch.tensor([head.shape[1]]))
+    feats = feats[0].double()
+    cmvn = os.path.join(d, "cmvn.json")
+    with open(cmvn, "w") as f:
+        json.dump({"mean_stat": feats.sum(0).tolist(),
+                   "var_stat": (feats ** 2).sum(0).tolist(),
+                   "frame_num": feats.shape[0]}, f)
+    for name, (model, config) in models.items():
+        paths[name + ".pt"] = os.path.join(d, f"{name}.pt")
+        torch.save(model.state_dict(), paths[name + ".pt"])
+        paths[name + ".json"] = os.path.join(d, f"{name}.json")
+        with open(paths[name + ".json"], "w") as f:
+            json.dump(dict(config, tokenizer="whitespace",
+                           tokenizer_conf={"symbol_table_path": units},
+                           cmvn="global_cmvn",
+                           cmvn_conf={"cmvn_file": cmvn,
+                                      "is_json_cmvn": True},
+                           dataset_conf={"fbank_conf": {
+                               "num_mel_bins": 80, "frame_shift": 10,
+                               "frame_length": 25, "dither": 0.0}}), f)
+    return paths
+
+
+def check_ctm(path: str, name: str, audio_s: float):
+    """Every line '<name> 1 <start> <dur> <word>' with start >= 0, dur >=
+    0, start + dur within the audio (+0.01: both are rounded to 0.01 s),
+    and starts non-decreasing (the windows are consecutive, so this holds
+    across windows too).  Returns (ok, line count)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    ok, prev = bool(lines), 0.0
+    for ln in lines:
+        f = ln.split()
+        if len(f) != 5 or f[0] != name or f[1] != "1":
+            return False, len(lines)
+        start, dur = float(f[2]), float(f[3])
+        ok = (ok and start >= 0 and dur >= 0
+              and start + dur <= audio_s + 0.01 and start >= prev)
+        prev = start
+    return ok, len(lines)
+
+
+def phase_cli(paths, card: str):
+    """The port's recognize_wav at full width: 32 x 90 s windows (one
+    batch), beam 8, bf16, the HAT then the standard flagship, each with
+    the counters set to 0 just before and read just after.  Returns (ok,
+    counts of the HAT run)."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import recognize_wav
+    from paper_accurate_fast_cheap_tpu_torch.ops import ctc_utils
+
+    # time the batched Viterbi alignment (CTM timing) inside the CLI: its
+    # inputs are on the host already (the search results), so the
+    # synchronise before it waits for nothing the CLI would not
+    align = ctc_utils.force_align_batch_device
+    align_s = []
+
+    def timed_align(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = align(*a, **k)
+        align_s.append(time.perf_counter() - t0)
+        return r
+
+    ok, hat_counts = True, None
+    ctc_utils.force_align_batch_device = timed_align
+    try:
+        for name, route in (("hat", "fused_topk"),
+                            ("standard", "joint_topk")):
+            align_s.clear()
+            good, counts = _cli_run(recognize_wav, paths, name, route, card,
+                                    align_s)
+            ok = ok and good
+            if name == "hat":
+                hat_counts = counts
+    finally:
+        ctc_utils.force_align_batch_device = align
+    return ok, hat_counts
+
+
+def _cli_run(recognize_wav, paths, name, route, card, align_s):
+    """One CLI run, counters zeroed just before and read just after.
+    Returns (ok, counts)."""
+    import torch
+
+    out = os.path.join(os.path.dirname(paths["wav"]), f"out_{name}")
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = recognize_wav.main([
+        "--config", paths[name + ".json"],
+        "--checkpoint", paths[name + ".pt"], "--wav", paths["wav"],
+        "--output_dir", out, "--mode", "rnnt_beam_search",
+        "--batch_size", str(CLI_WINDOWS), "--chunk_size",
+        str(CLI_CHUNK), "--beam_size", str(BEAM), "--precision", "bf16"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {"wkv6_fwd": 24, "joint_topk": 0, "lstm_step": CLI_FRAMES + 1,
+            "fused_topk": 0, "topk": 0}
+    want[route] = CLI_FRAMES
+    with open(os.path.join(out, "episode.txt")) as f:
+        words = f.read().split()
+    ctm_ok, n_ctm = check_ctm(os.path.join(out, "episode.ctm"),
+                              "episode", paths["audio_s"])
+    good = rc == 0 and counts == want and len(words) > 0 and ctm_ok
+    log(f"CLI {name}: recognize_wav.main {wall:.2f} s (model load "
+        f"included), launch counters {json.dumps(counts)}, expected "
+        f"{json.dumps(want)}; TXT {len(words)} words, CTM {n_ctm} lines "
+        f"well formed {ctm_ok}; Viterbi alignment per batch "
+        f"{[round(t, 4) for t in align_s]} s {'ok' if good else 'FAIL'}")
+    with open(os.path.join(out, "episode.rtf")) as f:
+        for ln in f.read().splitlines():
+            log(f"CLI {name} .rtf [{card}]: {ln}")
+    return good, counts
 
 
 def main() -> int:
@@ -503,39 +877,64 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_device()
+    card = phase_device()
     phase_build()
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     rows, ok = [], True
-    for check in (check_wkv, check_joint_topk, check_lstm):
+    for check in (check_wkv, check_joint_topk, check_lstm, check_fused_topk,
+                  check_topk):
         row, good = check(g)
         torch.cuda.synchronize()
         rows.append(row)
         ok = ok and good
     failed = [] if ok else ["kernels vs plain"]
+    log_unported_bounds()
     if args.kernels_only:
         return 1 if failed else 0
 
     rng = np.random.RandomState(0)
-    model = build_model()
-    if not phase_reference(model, rng):
-        failed.append("card vs CPU reference")
-    if args.batch != 32:
-        log(f"main path cut: batch {args.batch} (flagship point: 32 x "
-            f"{WINDOW_S} s)")
-    ok, counts = phase_main(model, rng, args.batch)
-    if not ok:
-        failed.append("main path")
+    model, hat_model = build_model(), build_model(hat=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # the checkpoints are saved in f32, before the main path casts
+        paths = write_cli_inputs(work, rng, {"standard": (model, CONFIG),
+                                             "hat": (hat_model, HAT_CONFIG)})
+        ref_ok, k5_launches = phase_reference(model, hat_model, rng)
+        if not ref_ok:
+            failed.append("card vs CPU reference")
+        hat_model = hat_model.cpu()
+        if args.batch != 32:
+            log(f"main path cut: batch {args.batch} (flagship point: 32 x "
+                f"{WINDOW_S} s)")
+        ok, counts = phase_main(model, rng, args.batch)
+        if not ok:
+            failed.append("main path")
+        del model
+        torch.cuda.empty_cache()
+        cli_ok, hat_counts = phase_cli(paths, card)
+        if not cli_ok:
+            failed.append("recognize_wav CLI")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     if failed:
         log(f"chip_smoke: FAILED: {', '.join(failed)}")
         return 1
+    main_path = f"main path ({args.batch} x {WINDOW_S} s, bf16)"
+    launches = {name: (counts[name], main_path)
+                for name in ("wkv6_fwd", "joint_topk", "lstm_step")}
+    launches["fused_topk"] = (hat_counts["fused_topk"],
+                              f"recognize_wav CLI, HAT flagship "
+                              f"({CLI_WINDOWS} x 90 s, bf16)")
+    launches["topk"] = (k5_launches, "reference, xla route (2 x 3 s, f32)")
     for row in rows:
         src, rep = KERNELS[row["name"]]
-        row.update(route="cuda", source=src, replaces=rep,
-                   launches=counts[row["name"]])
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        n, path = launches[row["name"]]
+        row.update(route="cuda", source=src, replaces=rep, launches=n,
+                   launches_path=path)
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in rows]}))
     print(json.dumps({"ok": True, "device": {

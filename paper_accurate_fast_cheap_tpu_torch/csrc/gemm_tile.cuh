@@ -12,25 +12,11 @@
 // tiles are later work.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace pafc {
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Round a float through storage type T (a no-op for float): the TPU kernels
-// cast operands to the compute dtype before the product.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
 template <int TM, int TN>
 __device__ __forceinline__ void zero_acc(float (&acc)[TM][TN]) {

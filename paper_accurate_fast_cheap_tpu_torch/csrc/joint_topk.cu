@@ -22,8 +22,8 @@
 // writes the f32 logits, bias added and pad columns at -inf, into an (R, Vp)
 // scratch buffer the wrapper allocates (5 MB: it stays in the 50 MB L2).
 // (2) one block per row stages the row in shared memory, takes the
-// logsumexp, fuses the CTC row and runs the selection with block-wide
-// (value desc, index asc) argmax rounds.  The product runs on CUDA cores,
+// logsumexp, fuses the CTC row and runs the selection shared with K4 and K5
+// (topk_select.cuh: block-wide (value desc, index asc) argmax rounds).  The product runs on CUDA cores,
 // far from the tensor-core bound; wgmma tiles and a single persistent launch
 // are later work.
 #include <cuda_bf16.h>
@@ -31,14 +31,14 @@
 #include <math.h>
 
 #include "gemm_tile.cuh"
+#include "topk_select.cuh"
 
 namespace {
 
+using pafc::kChunk;
+using pafc::kMaxK;
+using pafc::kSelThreads;
 using pafc::to_f32;
-
-constexpr int kChunk = 128;
-constexpr int kSelThreads = 256;
-constexpr int kMaxK = 32;
 
 constexpr int GBM = 64, GBN = 128, GBK = 16, GTM = 8, GTN = 8;
 constexpr int kGemmThreads = (GBM / GTM) * (GBN / GTN);
@@ -78,113 +78,14 @@ __global__ void __launch_bounds__(kGemmThreads)
   }
 }
 
-__device__ __forceinline__ float logaddexp(float a, float b) {
-  const float m = fmaxf(a, b);
-  if (m == -INFINITY) return -INFINITY;
-  return m + log1pf(expf(-fabsf(a - b)));
-}
-
-// (value, index) pair order: larger value first, then lower index.
-__device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
-
-__device__ __forceinline__ void warp_best(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
-// Block-wide best (value desc, index asc) over every thread's candidate.
-__device__ void block_best(float& v, int& i, float* sv, int* si) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  warp_best(v, i);
-  if (lane == 0) {
-    sv[wid] = v;
-    si[wid] = i;
-  }
-  __syncthreads();
-  if (wid == 0) {
-    v = lane < kSelThreads / 32 ? sv[lane] : -INFINITY;
-    i = lane < kSelThreads / 32 ? si[lane] : 0x7fffffff;
-    warp_best(v, i);
-    if (lane == 0) {
-      sv[0] = v;
-      si[0] = i;
-    }
-  }
-  __syncthreads();
-  v = sv[0];
-  i = si[0];
-  __syncthreads();
-}
-
-__device__ float block_reduce(float v, bool is_max, float* sv) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = is_max ? fmaxf(v, o) : v + o;
-  }
-  if (lane == 0) sv[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    v = lane < kSelThreads / 32 ? sv[lane] : (is_max ? -INFINITY : 0.f);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float o = __shfl_xor_sync(0xffffffffu, v, off);
-      v = is_max ? fmaxf(v, o) : v + o;
-    }
-    if (lane == 0) sv[0] = v;
-  }
-  __syncthreads();
-  v = sv[0];
-  __syncthreads();
-  return v;
-}
-
-// Masked-argmax rounds over cand[0, n): k picks, each the best (value desc,
-// position asc); the pick is set to -inf.  On an all -inf remainder the
-// lowest position wins again, as jnp.argmax does.
-__device__ void argmax_rounds(float* cand, int n, int k, float* out_v, int* out_pos, float* sv,
-                              int* si) {
-  for (int r = 0; r < k; ++r) {
-    float bv = -INFINITY;
-    int bi = 0x7fffffff;
-    for (int p = threadIdx.x; p < n; p += kSelThreads)
-      if (better(cand[p], p, bv, bi)) {
-        bv = cand[p];
-        bi = p;
-      }
-    block_best(bv, bi, sv, si);
-    if (threadIdx.x == 0) {
-      out_v[r] = bv;
-      out_pos[r] = bi;
-      cand[bi] = -INFINITY;
-    }
-    __syncthreads();
-  }
-}
-
 template <typename TC>
 __global__ void __launch_bounds__(kSelThreads)
     fuse_select_kernel(int V, int Vp, int n_rep, int k, const float* __restrict__ logits,
                        const TC* __restrict__ ctc, int ctc_ld, float log_tw, float log_cw,
                        float* __restrict__ vals, int* __restrict__ idx) {
   extern __shared__ float row[];  // Vp scores, then the chunk maxima / k*128 survivors
-  __shared__ float sv[32];
-  __shared__ int si[32];
-  __shared__ float pick_v[kMaxK];
-  __shared__ int pick_p[kMaxK];
-  __shared__ int chunk_ids[kMaxK];
+  __shared__ pafc::SelectShared sh;
   const int r = blockIdx.x;
-  const int G = Vp / kChunk;
   const float* lrow = logits + (long long)r * Vp;
   const TC* crow = ctc + (long long)(r / n_rep) * ctc_ld;
 
@@ -194,56 +95,17 @@ __global__ void __launch_bounds__(kSelThreads)
     row[n] = l;
     m = fmaxf(m, l);
   }
-  m = block_reduce(m, true, sv);
+  m = pafc::block_reduce(m, true, sh);
   float s = 0.f;
   for (int n = threadIdx.x; n < Vp; n += kSelThreads) s += expf(row[n] - m);
-  const float lse = m + logf(block_reduce(s, false, sv));
+  const float lse = m + logf(pafc::block_reduce(s, false, sh));
   for (int n = threadIdx.x; n < Vp; n += kSelThreads) {
     const float c = n < V ? to_f32(crow[n]) : -INFINITY;
-    row[n] = logaddexp(log_tw + (row[n] - lse), log_cw + c);
+    row[n] = pafc::logaddexp(log_tw + (row[n] - lse), log_cw + c);
   }
   __syncthreads();
 
-  const bool direct = V <= 8 * kChunk || k >= G;
-  float* cand = row;
-  int n_cand = V;
-  if (!direct) {
-    // phase 1: chunk maxima; phase 2: top-k chunks, lowest id on ties
-    float* cmax = row + Vp;  // G floats, reused below for the survivors
-    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-    for (int g = wid; g < G; g += kSelThreads / 32) {
-      float cm = -INFINITY;
-      for (int p = lane; p < kChunk; p += 32) cm = fmaxf(cm, row[g * kChunk + p]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, off));
-      if (lane == 0) cmax[g] = cm;
-    }
-    __syncthreads();
-    argmax_rounds(cmax, G, k, pick_v, chunk_ids, sv, si);
-    if (threadIdx.x == 0) {  // ascending chunk ids: position order == index order
-      for (int a = 1; a < k; ++a)
-        for (int c = a; c > 0 && chunk_ids[c - 1] > chunk_ids[c]; --c) {
-          const int t = chunk_ids[c];
-          chunk_ids[c] = chunk_ids[c - 1];
-          chunk_ids[c - 1] = t;
-        }
-    }
-    __syncthreads();
-    // phase 3: gather the k chunks behind the scores
-    cand = row + Vp;
-    n_cand = k * kChunk;
-    for (int p = threadIdx.x; p < n_cand; p += kSelThreads)
-      cand[p] = row[chunk_ids[p / kChunk] * kChunk + p % kChunk];
-    __syncthreads();
-  }
-  // phase 4: top-k of the candidates
-  argmax_rounds(cand, n_cand, k, pick_v, pick_p, sv, si);
-  if (threadIdx.x < k) {
-    const int p = pick_p[threadIdx.x];
-    vals[(long long)r * k + threadIdx.x] = pick_v[threadIdx.x];
-    idx[(long long)r * k + threadIdx.x] =
-        direct ? p : chunk_ids[p / kChunk] * kChunk + p % kChunk;
-  }
+  pafc::select_topk_row(row, V, Vp, k, vals + (long long)r * k, idx + (long long)r * k, sh);
 }
 
 template <typename T>
@@ -256,13 +118,9 @@ int launch(int R, int D, int V, int n_rep, int k, const void* x, const void* w, 
                                                              (const T*)w, (const T*)b, logits);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  const int G = Vp / kChunk;
-  const size_t smem = (size_t)(Vp + (G > k * kChunk ? G : k * kChunk)) * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = (int)cudaFuncSetAttribute(fuse_select_kernel<T>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err) return err;
-  }
+  const size_t smem = pafc::select_smem_floats(Vp, k) * sizeof(float);
+  err = pafc::allow_smem(fuse_select_kernel<T>, smem);
+  if (err) return err;
   fuse_select_kernel<T><<<R, kSelThreads, smem, stream>>>(V, Vp, n_rep, k, logits,
                                                           (const T*)ctc, ctc_ld, log_tw, log_cw,
                                                           vals, idx);

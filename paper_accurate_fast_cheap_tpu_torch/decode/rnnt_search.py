@@ -7,20 +7,30 @@ joint with enc[t], fusion ``log(tw * exp(trans) + cw * exp(ctc[t]))``, the
 top-k expansion (blank keeps the prefix and state, a token extends both),
 log-add merge of identical prefixes (two wrapping 32-bit polynomial hashes
 + length), prune to the beam.  Fixed beam, fixed shapes: the frame loop is
-a Python loop of tensor ops on the device; each frame runs K2
-(``ops/joint_topk.py``) for the joint head + fusion + top-k and K3
-(``ops/lstm_step.py``) for the predictor, the port of the JAX beam's
-``pallas_joint`` and fused-predictor branches.  The encoder side of the
-joint is projected once per batch, the CTC log-probs are lane-padded with
--inf once, and the initial blank step is taken before the loop.
+a Python loop of tensor ops on the device.  Each frame runs K3
+(``ops/lstm_step.py``) for the predictor and one of the JAX beam's three
+top-k routes (``topk_impl``):
+
+* ``pallas_joint`` -- K2 (``ops/joint_topk.py``): joint head + log-softmax
+  + fusion + top-k in one kernel, from the joint's split form (the encoder
+  side projected once per batch, the CTC log-probs lane-padded with -inf
+  once);
+* ``pallas`` -- ``joint_step`` per frame, then K4 (``ops/fused_topk.py``):
+  fusion + top-k in one kernel (the route of a joint with no split form,
+  e.g. HAT);
+* ``xla`` -- ``joint_step``, ``torch.logaddexp``, then K5
+  (``ops/topk.top_k_vocab``).
+
+``auto`` takes ``pallas_joint`` where the joint has the split form, else
+``pallas``, on the card and on the CPU alike.  The initial blank step is
+taken before the loop.
 
 Ties never go through ``torch.topk``/``sort``: the vocab selection follows
-``ops/topk.top_k_vocab`` and the final prune ``ops/topk.stable_top_k``
+``ops/topk.top_k_vocab_plain`` and the final prune ``ops/topk.stable_top_k``
 (``jax.lax.top_k`` order).
 """
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import Callable, List
 
@@ -28,25 +38,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from paper_accurate_fast_cheap_tpu_torch.decode.search import DecodeResult
+from paper_accurate_fast_cheap_tpu_torch.ops.fused_topk import (
+    fused_top_k_vocab)
 from paper_accurate_fast_cheap_tpu_torch.ops.joint_topk import (
-    LANES, joint_top_k_vocab)
-from paper_accurate_fast_cheap_tpu_torch.ops.topk import stable_top_k
+    joint_top_k_vocab)
+from paper_accurate_fast_cheap_tpu_torch.ops.topk import (
+    LANES, stable_top_k, top_k_vocab)
 
 P1 = 2654435761
 P2 = 2246822519
 _M32 = 0xFFFFFFFF
-
-
-@dataclasses.dataclass
-class DecodeResult:
-    tokens: List[int]
-    score: float = 0.0
-    confidence: float = 0.0
-    tokens_confidence: List[float] = dataclasses.field(default_factory=list)
-    times: List[int] = dataclasses.field(default_factory=list)
-    nbest: List[List[int]] = dataclasses.field(default_factory=list)
-    nbest_scores: List[float] = dataclasses.field(default_factory=list)
-    nbest_times: List[List[int]] = dataclasses.field(default_factory=list)
 
 
 def _mul_u32(a: torch.Tensor, p: int) -> torch.Tensor:
@@ -59,10 +61,11 @@ def _mul_u32(a: torch.Tensor, p: int) -> torch.Tensor:
 def make_transducer_step_fns(model):
     """(predictor_step, joint_step, init_state_fn) for the searches.
 
-    ``joint_step`` carries the split joint the device beam needs:
-    ``enc_proj`` (batched encoder projection), ``preact`` (the activation
-    before the vocab head) and ``head`` (the ``ffn_out`` weight and bias,
-    which K2 applies inside the kernel).
+    Where the joint has an ``ffn_out`` head (not HAT), ``joint_step``
+    carries the split form the ``pallas_joint`` route needs: ``enc_proj``
+    (batched encoder projection), ``preact`` (the activation before the
+    vocab head) and ``head`` (the ``ffn_out`` weight and bias, which K2
+    applies inside the kernel).
     """
     def predictor_step(tokens, state):
         return model.predictor_step(tokens, state)
@@ -70,10 +73,11 @@ def make_transducer_step_fns(model):
     def joint_step(enc_t, pred):
         return model.joint_step(enc_t, pred)
 
-    joint_step.enc_proj = model.joint_enc_proj
-    joint_step.preact = model.joint_preact
-    joint_step.head = lambda: (model.joint.ffn_out.weight,  # noqa: E731
-                               model.joint.ffn_out.bias)
+    if hasattr(model.joint, "ffn_out"):
+        joint_step.enc_proj = model.joint_enc_proj
+        joint_step.preact = model.joint_preact
+        joint_step.head = lambda: (model.joint.ffn_out.weight,  # noqa: E731
+                                   model.joint.ffn_out.bias)
     return predictor_step, joint_step, model.predictor_init_state
 
 
@@ -82,26 +86,37 @@ def rnnt_beam_search(predictor_step: Callable, joint_step: Callable,
                      enc_lens: torch.Tensor, ctc_probs: torch.Tensor,
                      beam_size: int = 8, blank_id: int = 0,
                      ctc_weight: float = 0.3, transducer_weight: float = 0.7,
-                     impl: str = "device", defer: bool = False):
+                     impl: str = "device", defer: bool = False,
+                     topk_impl: str = "auto"):
     """Batched prefix beam search with CTC shallow fusion.
 
     enc_out (B, T, De), enc_lens (B,), ctc_probs (B, T, V) log-probs.
-    Returns a list of DecodeResult, or with ``defer=True`` the final carry
-    (for ``pack_device_beam`` / ``finalize_device_beam``).  Only
-    ``impl="device"`` (with the pairwise merge) is ported.
+    ``topk_impl`` is ``auto``, ``pallas_joint``, ``pallas`` or ``xla``
+    (module docstring); ``pallas_joint`` without the split form takes
+    ``pallas``, as in JAX.  Returns a list of DecodeResult, or with
+    ``defer=True`` the final carry (for ``pack_device_beam`` /
+    ``finalize_device_beam``).  Only ``impl="device"`` (with the pairwise
+    merge) is ported.
     """
     if impl != "device":
         raise NotImplementedError("the port has the device beam only")
+    if topk_impl not in ("auto", "pallas_joint", "pallas", "xla"):
+        raise ValueError(f"unknown topk_impl {topk_impl!r}")
+    if topk_impl in ("auto", "pallas_joint"):
+        topk_impl = ("pallas_joint" if hasattr(joint_step, "preact")
+                     else "pallas")
     with torch.no_grad():
         out = _rnnt_beam_search_device(
             predictor_step, joint_step, init_state_fn, enc_out, enc_lens,
-            ctc_probs, beam_size, blank_id, ctc_weight, transducer_weight)
+            ctc_probs, beam_size, blank_id, ctc_weight, transducer_weight,
+            topk_impl)
     return out if defer else finalize_device_beam(out)
 
 
 def _rnnt_beam_search_device(predictor_step, joint_step, init_state_fn,
                              enc_out, enc_lens, ctc_probs, beam_size,
-                             blank_id, ctc_weight, transducer_weight):
+                             blank_id, ctc_weight, transducer_weight,
+                             topk_impl):
     dev = enc_out.device
     B, T, _ = enc_out.shape
     N = beam_size
@@ -111,14 +126,16 @@ def _rnnt_beam_search_device(predictor_step, joint_step, init_state_fn,
     log_tw = math.log(transducer_weight) if transducer_weight > 0 else neg
     log_cw = math.log(ctc_weight) if ctc_weight > 0 else neg
     lens = enc_lens.to(dev)
-    w_out, b_out = joint_step.head()
-
-    # hoisted once per batch: the joint's encoder projection, and the CTC
-    # log-probs lane-padded with -inf (kept in their dtype)
-    enc_p = joint_step.enc_proj(enc_out)
-    V = ctc_probs.shape[-1]
-    Vp = -(-V // LANES) * LANES
-    ctc = ctc_probs if Vp == V else F.pad(ctc_probs, (0, Vp - V), value=neg)
+    ctc = ctc_probs
+    if topk_impl == "pallas_joint":
+        w_out, b_out = joint_step.head()
+        # hoisted once per batch: the joint's encoder projection, and the
+        # CTC log-probs lane-padded with -inf (kept in their dtype)
+        enc_out = joint_step.enc_proj(enc_out)
+        V = ctc_probs.shape[-1]
+        Vp = -(-V // LANES) * LANES
+        if Vp != V:
+            ctc = F.pad(ctc_probs, (0, Vp - V), value=neg)
 
     # the carry holds the state AFTER each beam's last token (the leading
     # blank here), so emissions step the predictor from the right state
@@ -142,10 +159,21 @@ def _rnnt_beam_search_device(predictor_step, joint_step, init_state_fn,
 
     for t in range(T):
         active = t < lens                                  # (B,)
-        enc_rep = enc_p[:, t].repeat_interleave(N, dim=0)  # (B*N, J)
-        x_act = joint_step.preact(enc_rep, pred_out)
-        vals, toks = joint_top_k_vocab(x_act, w_out, b_out, ctc[:, t], N,
-                                       log_tw, log_cw)     # (B, N, N)
+        enc_rep = enc_out[:, t].repeat_interleave(N, dim=0)  # (B*N, De|J)
+        if topk_impl == "pallas_joint":
+            x_act = joint_step.preact(enc_rep, pred_out)
+            vals, toks = joint_top_k_vocab(x_act, w_out, b_out, ctc[:, t],
+                                           N, log_tw, log_cw)  # (B, N, N)
+        elif topk_impl == "pallas":
+            logp = joint_step(enc_rep, pred_out)
+            vals, toks = fused_top_k_vocab(logp, ctc[:, t], N, log_tw,
+                                           log_cw)
+        else:
+            logp = joint_step(enc_rep, pred_out)
+            fused = torch.logaddexp(
+                log_tw + logp,
+                log_cw + ctc[:, t].repeat_interleave(N, dim=0))
+            vals, toks = top_k_vocab(fused.reshape(B, N, -1), N)
         c_score = (scores[:, :, None] + vals).reshape(B, NK)
         c_tok = toks.reshape(B, NK)
         c_adv = c_tok != blank_id

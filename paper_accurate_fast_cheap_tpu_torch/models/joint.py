@@ -1,9 +1,11 @@
 """Transducer joint (port of the JAX ``models/joint.py``: add mode, tanh,
-pre-join projections, no post-join projection, non-HAT)."""
+pre-join projections, no post-join projection; the standard ``ffn_out``
+head or the HAT head of ``blank_pred`` and ``token_pred``)."""
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from paper_accurate_fast_cheap_tpu_torch.models.layers import dense
 
@@ -16,13 +18,18 @@ class TransducerJoint(nn.Module):
                  hat_joint: bool = False):
         super().__init__()
         if (not prejoin_linear or postjoin_linear or joint_mode != "add"
-                or activation != "tanh" or hat_joint):
+                or activation != "tanh"):
             raise NotImplementedError(
                 "the port's joint is add-mode tanh with pre-join "
-                "projections, no post-join projection, non-HAT")
+                "projections and no post-join projection")
+        self.hat_joint = hat_joint
         self.enc_ffn = nn.Linear(enc_output_size, join_dim)
         self.pred_ffn = nn.Linear(pred_output_size, join_dim)
-        self.ffn_out = nn.Linear(join_dim, vocab_size)
+        if hat_joint:
+            self.blank_pred = nn.Linear(join_dim, 1)
+            self.token_pred = nn.Linear(join_dim, vocab_size - 1)
+        else:
+            self.ffn_out = nn.Linear(join_dim, vocab_size)
 
     def project_enc(self, enc: torch.Tensor) -> torch.Tensor:
         return dense(self.enc_ffn, enc)
@@ -36,6 +43,12 @@ class TransducerJoint(nn.Module):
         return torch.tanh(enc_p + self.project_pred(pred_u))
 
     def single_step(self, enc_t: torch.Tensor, pred_u: torch.Tensor):
-        """enc_t (B, De), pred_u (B, Dp) -> (B, V) logits."""
-        return dense(self.ffn_out, self.preact(self.project_enc(enc_t),
-                                               pred_u))
+        """enc_t (B, De), pred_u (B, Dp) -> (B, V) logits (HAT: the
+        blank log-probability, then the token log-probabilities)."""
+        x = self.preact(self.project_enc(enc_t), pred_u)
+        if not self.hat_joint:
+            return dense(self.ffn_out, x)
+        blank_logp = F.logsigmoid(dense(self.blank_pred, x))
+        token_logp = torch.log1p(-torch.exp(blank_logp)) + torch.log_softmax(
+            dense(self.token_pred, x), dim=-1)
+        return torch.cat([blank_logp, token_logp], dim=-1)

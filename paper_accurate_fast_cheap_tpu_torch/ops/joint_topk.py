@@ -5,8 +5,9 @@ Port of the TPU kernel ``ops/topk_pallas.py:_joint_topk_kernel`` (via
 ``joint_top_k_vocab_pallas``).  For a CUDA tensor
 :func:`joint_top_k_vocab` launches the kernel or raises; for a CPU tensor it
 runs :func:`joint_top_k_vocab_plain`: the f32 product, ``log_softmax``,
-``logaddexp`` and ``ops/topk.top_k_vocab`` (the JAX wrapper's own fallback
-math, with the same selection and tie rules as the kernel).
+``logaddexp`` and ``ops/topk.top_k_vocab_plain`` (the JAX wrapper's own
+fallback math, with the same selection and tie rules as the kernel, whose
+selection is ``csrc/topk_select.cuh``, shared with K4 and K5).
 """
 from __future__ import annotations
 
@@ -15,9 +16,9 @@ import ctypes
 import torch
 
 from paper_accurate_fast_cheap_tpu_torch.ops import cuda_lib
-from paper_accurate_fast_cheap_tpu_torch.ops.topk import top_k_vocab
+from paper_accurate_fast_cheap_tpu_torch.ops.topk import (
+    LANES, check_select, top_k_vocab_plain)
 
-LANES = 128
 _ARGTYPES = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
              + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 4)
 
@@ -35,8 +36,7 @@ def _check_shapes(x, w, b, ctc, k):
     if ctc.shape[1] < V:
         raise ValueError(f"joint_top_k_vocab: ctc has {ctc.shape[1]} "
                          f"columns < V={V}")
-    if not 0 < k <= min(V, 32):
-        raise ValueError(f"joint_top_k_vocab: k={k} outside 1..min(V, 32)")
+    check_select("joint_top_k_vocab", V, k)
     return R, D, V, B, R // B
 
 
@@ -49,7 +49,7 @@ def joint_top_k_vocab_plain(x, w, b, ctc, k: int, log_tw: float,
     fused = torch.logaddexp(
         log_tw + logp,
         log_cw + ctc[:, :V].float().repeat_interleave(n_rep, dim=0))
-    return top_k_vocab(fused.reshape(B, n_rep, V), k)
+    return top_k_vocab_plain(fused.reshape(B, n_rep, V), k)
 
 
 def joint_top_k_vocab(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -3,20 +3,35 @@ whose tie order is unspecified).
 
 * :func:`top_k_iter` -- k rounds of masked argmax: value descending, lowest
   index among equal values (``torch.argmax`` returns the first maximum).
-* :func:`top_k_vocab` -- the two-level vocab selection of the JAX package's
-  ``decode/rnnt_search.py:top_k_vocab``: 128-wide chunk maxima, the top-k
-  chunks (lowest chunk id on ties), then the top-k of the k*128 survivors
-  gathered in ascending chunk order (lowest global index on ties).  The
-  plain version of the joint+top-k kernel's selection.
+* :func:`top_k_vocab` -- K5, the two-level vocab selection of the JAX
+  package's ``decode/rnnt_search.py:top_k_vocab`` as a hand-written CUDA
+  kernel (``csrc/topk.cu``, port of the TPU kernel
+  ``ops/topk_pallas.py:_topk_kernel`` via ``top_k_vocab_pallas``): 128-wide
+  chunk maxima, the top-k chunks (lowest chunk id on ties), then the top-k
+  of the k*128 survivors gathered in ascending chunk order (lowest global
+  index on ties).  For a CPU tensor it runs :func:`top_k_vocab_plain`, which
+  is also the plain version of the selection K2 and K4 share
+  (``csrc/topk_select.cuh``).
 * :func:`stable_top_k` -- ``jax.lax.top_k`` order (value descending, index
   ascending, no repeats) by pairwise ranks, for small last axes.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
+from paper_accurate_fast_cheap_tpu_torch.ops import cuda_lib
+
 NEG_INF = float("-inf")
+LANES = 128
+MAX_K = 32
+# dynamic shared memory a selection block may take: the H100's 227 KB per
+# block less 1 KB for the kernels' static shared arrays
+SMEM_BYTES = 232448 - 1024
+_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_longlong]
+             + [ctypes.c_void_p] * 3)
 
 
 def top_k_iter(x: torch.Tensor, k: int):
@@ -30,10 +45,10 @@ def top_k_iter(x: torch.Tensor, k: int):
     return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
 
 
-def top_k_vocab(x: torch.Tensor, k: int, chunk: int = 128):
+def top_k_vocab_plain(x: torch.Tensor, k: int, chunk: int = 128):
     """Exact top-k over a vocab-sized last axis (two-level, see module
-    docstring).  Small axes, or k >= the chunk count, take the direct
-    :func:`top_k_iter` path, as the JAX version does."""
+    docstring), in ``x``'s dtype.  Small axes, or k >= the chunk count,
+    take the direct :func:`top_k_iter` path, as the JAX version does."""
     V = x.shape[-1]
     G = (V + chunk - 1) // chunk
     if V <= 8 * chunk or k >= G:
@@ -52,6 +67,48 @@ def top_k_vocab(x: torch.Tensor, k: int, chunk: int = 128):
     loc = loc.long()
     chunk_of = torch.gather(gidx, -1, loc // chunk)
     return vals, (chunk_of * chunk + loc % chunk).to(torch.int32)
+
+
+def check_select(what: str, V: int, k: int) -> None:
+    """Raise unless the shared CUDA selection takes a row of V scores and
+    k picks: k <= 32, and the row plus its scratch fit shared memory."""
+    if not 0 < k <= min(V, MAX_K):
+        raise ValueError(f"{what}: k={k} outside 1..min(V={V}, {MAX_K})")
+    Vp = -(-V // LANES) * LANES
+    if (Vp + max(Vp // LANES, k * LANES)) * 4 > SMEM_BYTES:
+        raise ValueError(f"{what}: a row of V={V} does not fit the "
+                         f"selection's {SMEM_BYTES} bytes of shared memory")
+
+
+def top_k_vocab(x: torch.Tensor, k: int):
+    """K5: exact top-k over the last axis of ``x`` (..., V), f32 or bf16.
+
+    Returns ((..., k) f32 values, (..., k) int32 indices) with the
+    selection and tie rules of :func:`top_k_vocab_plain`.  A CUDA tensor
+    launches ``csrc/topk.cu`` (rows flattened, selected in f32) or raises;
+    a CPU tensor runs :func:`top_k_vocab_plain`.
+    """
+    if x.device.type != "cuda":
+        return top_k_vocab_plain(x, k)
+    lead, V = x.shape[:-1], x.shape[-1]
+    check_select("top_k_vocab", V, k)
+    code = cuda_lib.dtype_code(x.dtype)
+    xr = x.reshape(-1, V)
+    if xr.stride(1) != 1:
+        xr = xr.contiguous()
+    R = xr.shape[0]
+    vals = torch.empty(R, k, device=x.device, dtype=torch.float32)
+    idx = torch.empty(R, k, device=x.device, dtype=torch.int32)
+    fn = cuda_lib.load("topk").pafc_topk
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    err = fn(code, R, V, k, xr.data_ptr(), xr.stride(0), vals.data_ptr(),
+             idx.data_ptr(), cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(err, "topk")
+    top_k_vocab.launches += 1
+    return vals.reshape(*lead, k), idx.reshape(*lead, k)
+
+
+top_k_vocab.launches = 0
 
 
 def stable_top_k(x: torch.Tensor, k: int):

@@ -48,7 +48,9 @@ def test_port_sources_do_not_name_the_jax_package():
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         if imp.search(f.read()):
             offenders.append("chip_smoke.py")
-    for d, _, files in os.walk(os.path.join(ROOT, PKG)):
+    for d, dirs, files in os.walk(os.path.join(ROOT, PKG)):
+        # _build holds compiled kernels and unpacked checkouts, not sources
+        dirs[:] = [x for x in dirs if x != "_build"]
         for name in files:
             if not name.endswith((".py", ".cu", ".cuh")):
                 continue
@@ -66,6 +68,7 @@ def test_entry_points_default_to_cuda():
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch import resolve_device
+    from paper_accurate_fast_cheap_tpu_torch.bin import recognize_wav
     from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
     from paper_accurate_fast_cheap_tpu_torch.models import factory
 
@@ -82,5 +85,10 @@ def test_entry_points_default_to_cuda():
         factory.init_model(conf, 40, 80)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pipeline.make_feature_fn()
+    # the CLI: without --device cpu it asks for the card before reading
+    # anything (the paths need not exist)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        recognize_wav.main(["--config", "c.json", "--checkpoint", "m.pt",
+                            "--wav", "x.wav", "--output_dir", "out"])
     model, _ = factory.init_model(conf, 40, 80, device="cpu")
     assert next(model.parameters()).device.type == "cpu"

@@ -7,7 +7,12 @@ is initialised in JAX; its weights reach the port through
 ``convert.state_dict_from_jax``.  Waveform -> fbank + CMVN -> encoder ->
 CTC log-probs -> device prefix beam (beam 4) runs in both, in f32 with
 ``rwkv_do_bfloat16: False``; the port runs its plain versions on the CPU.
+The port's beam runs each of its three top-k routes (``pallas_joint``: K2,
+``pallas``: K4, ``xla``: K5) on the same encoder output, and every route
+gives the JAX package's tokens.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -67,8 +72,9 @@ def slice_run():
 
     j_feats, j_flens = j_pipeline.make_feature_fn({}, cmvn)(
         jnp.asarray(wavs), jnp.asarray(lens))
-    j_enc, j_elens = model.apply(params, j_feats, j_flens,
-                                 method=model.forward_encoder)
+    # jitted: one compile costs less on the CPU than the eager op stream
+    j_enc, j_elens = jax.jit(functools.partial(
+        model.apply, method=model.forward_encoder))(params, j_feats, j_flens)
     j_ctc = model.apply(params, j_enc, method=model.ctc_logprobs)
     fns = j_search.make_transducer_step_fns(model, params)
     j_res = j_search.finalize_device_beam(j_search.pack_device_beam(
@@ -93,7 +99,8 @@ def slice_run():
     # the encoder on JAX's own features: isolates it from the FFT's rounding
     t_enc_j, _ = tmodel.forward_encoder(torch.from_numpy(np.array(j_feats)),
                                         torch.from_numpy(np.array(j_flens)))
-    return dict(j_feats=j_feats, t_feats=t_feats, j_enc=j_enc, t_enc=t_enc,
+    return dict(tmodel=tmodel,
+                j_feats=j_feats, t_feats=t_feats, j_enc=j_enc, t_enc=t_enc,
                 t_enc_j=t_enc_j, j_elens=j_elens, t_elens=t_elens,
                 j_ctc=j_ctc, t_ctc=t_ctc, j_res=j_res, t_res=t_res)
 
@@ -124,6 +131,20 @@ def test_beam_tokens_identical(slice_run):
     assert len(j_res) == len(t_res) == 2
     assert any(r.tokens for r in j_res)
     for a, b in zip(j_res, t_res):
+        assert a.tokens == b.tokens
+        assert a.nbest == b.nbest
+        np.testing.assert_allclose(b.nbest_scores, a.nbest_scores,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("topk_impl", ["pallas_joint", "pallas", "xla"])
+def test_beam_routes_tokens_identical(slice_run, topk_impl):
+    tmodel = slice_run["tmodel"]
+    res = t_search.rnnt_beam_search(
+        *t_search.make_transducer_step_fns(tmodel), slice_run["t_enc"],
+        slice_run["t_elens"], slice_run["t_ctc"], beam_size=BEAM,
+        ctc_weight=0.3, transducer_weight=0.7, topk_impl=topk_impl)
+    for a, b in zip(slice_run["j_res"], res):
         assert a.tokens == b.tokens
         assert a.nbest == b.nbest
         np.testing.assert_allclose(b.nbest_scores, a.nbest_scores,

@@ -1,10 +1,16 @@
-"""The port's exact selections (K2's reference) against the JAX package.
+"""The port's exact selections (the plain versions of K2, K4 and K5)
+against the JAX package.
 
-``top_k_vocab`` and ``stable_top_k`` must pick the same indices as the
-JAX versions, ties included (indices exact, values exact).  The fused joint
-head's plain version (the K2 wrapper on CPU tensors) is held to the JAX
-Pallas kernel in interpret mode: indices exact, values 1e-5 (the product
-and the logsumexp are summed in another order).
+``top_k_vocab`` (K5's wrapper, on CPU tensors its plain version) and
+``stable_top_k`` must pick the same indices as the JAX versions, ties
+included (indices exact, values exact), and so must K5's plain version
+against the JAX Pallas kernel ``top_k_vocab_pallas`` in interpret mode.
+K4's plain version (``fused_top_k_vocab`` on CPU tensors) is held to
+``fused_top_k_vocab_pallas`` in interpret mode: indices exact, values
+within 1e-6 (the same f32 logaddexp).  The fused joint head's plain version
+(the K2 wrapper on CPU tensors) is held to the JAX Pallas kernel in
+interpret mode: indices exact, values 1e-5 (the product and the logsumexp
+are summed in another order).
 """
 import math
 
@@ -17,8 +23,10 @@ import torch
 from paper_accurate_fast_cheap_tpu.decode.rnnt_search import (
     top_k_vocab as j_top_k_vocab)
 from paper_accurate_fast_cheap_tpu.ops.topk_pallas import (
-    joint_top_k_vocab_pallas)
+    fused_top_k_vocab_pallas, joint_top_k_vocab_pallas, top_k_vocab_pallas)
 from paper_accurate_fast_cheap_tpu_torch.ops import topk as t_topk
+from paper_accurate_fast_cheap_tpu_torch.ops.fused_topk import (
+    fused_top_k_vocab)
 from paper_accurate_fast_cheap_tpu_torch.ops.joint_topk import (
     joint_top_k_vocab, joint_top_k_vocab_plain)
 
@@ -118,3 +126,65 @@ def test_joint_top_k_tie_semantics():
         torch.from_numpy(x), torch.from_numpy(w.T.copy()),
         torch.from_numpy(b), torch.from_numpy(ctc), N, ltw, lcw)
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+
+
+def _mixed_rows(V, seed):
+    """Rows of one (3, 2, V) array: random scores, quantized scores with
+    exact duplicates within and across chunks, a dead (-inf) beam row and
+    a -inf vocab tail."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(3, 2, V)).astype(np.float32) * 5
+    x[1] = rng.integers(-6, 6, size=(2, V))
+    x[2, 0] = -np.inf
+    x[2, 1, V // 2:] = -np.inf
+    return x
+
+
+@pytest.mark.parametrize("V,k", [
+    (1300, 6),      # two-level, V % 128 != 0
+    (600, 8),       # V <= 8 * 128: the direct gate
+    (1100, 9),      # k >= G: the direct gate
+])
+def test_k5_plain_matches_jax_pallas(V, k):
+    x = _mixed_rows(V, 4)
+    vj, ij = top_k_vocab_pallas(jnp.asarray(x), k)
+    vt, it = t_topk.top_k_vocab(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
+def _softmax_rows(rng, shape):
+    z = rng.randn(*shape).astype(np.float32) * 2
+    return z - np.log(np.exp(z).sum(-1, keepdims=True))
+
+
+@pytest.mark.parametrize("B,N,V,tw,cw,ties", [
+    (2, 4, 1300, 0.7, 0.3, False),         # two-level
+    (2, 4, 1100, 1.0, 0.0, True),          # exact ties, log_cw = -inf
+    (2, 4, 600, 0.7, 0.3, True),           # V <= 8 * 128: the direct gate
+])
+def test_k4_plain_matches_jax_pallas(B, N, V, tw, cw, ties):
+    rng = np.random.RandomState(7)
+    logp = _softmax_rows(rng, (B * N, V))
+    ctc = _softmax_rows(rng, (B, V))
+    if ties:
+        # duplicated blocks across chunk boundaries, a uniform CTC row
+        logp[:, 400:420] = logp[:, 100:120]
+        logp[:, V - 30:V - 10] = logp[:, 100:120]
+        ctc[:] = -np.log(V)
+    ltw = math.log(tw) if tw > 0 else -math.inf
+    lcw = math.log(cw) if cw > 0 else -math.inf
+    vj, ij = fused_top_k_vocab_pallas(jnp.asarray(logp), jnp.asarray(ctc),
+                                      N, ltw, lcw)
+    vt, it = fused_top_k_vocab(torch.from_numpy(logp), torch.from_numpy(ctc),
+                               N, ltw, lcw)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=1e-6,
+                               atol=1e-6)
+    # a lane-padded, strided ctc (as the beam passes it) gives the same
+    pad = np.full((B, 2, V + 40), -np.inf, np.float32)
+    pad[:, 1, :V] = ctc
+    vp, ip = fused_top_k_vocab(torch.from_numpy(logp),
+                               torch.from_numpy(pad)[:, 1], N, ltw, lcw)
+    np.testing.assert_array_equal(ip.numpy(), it.numpy())
+    np.testing.assert_array_equal(vp.numpy(), vt.numpy())
