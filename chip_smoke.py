@@ -6,9 +6,13 @@ Phases, each fatal on failure (no phase is skipped or caught):
   2. build: every kernel under paper_accurate_fast_cheap_tpu_torch/csrc/,
      one nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it, in float32 and bfloat16, with its time,
+     shapes its paths give it, in float32 and bfloat16, with its time,
      the plain version's time, a library yardstick where one exists, and
-     the least time the card could take (bound);
+     the least time the card could take (bound); K6's gradient against
+     autograd through its plain version; K1 under autograd at the
+     training step's shape (its analytic backward is plain PyTorch), in
+     f32 and in the step's bf16, y and gradients against the chunked WKV,
+     with the backward's time;
   4. reference: a small f32 decode of the flagship (standard joint, under
      the beam's three top-k routes) and of its HAT twin, the card against
      the CPU;
@@ -18,6 +22,13 @@ Phases, each fatal on failure (no phase is skipped or caught):
   6. the recognize_wav CLI at full width, 32 x 90 s windows of one WAV, for
      the HAT and the standard flagship, with the counters, the TXT and the
      CTM checked;
+  7. training reference: one f32 step of the flagship (loss, gradient
+     norm, parameters after one Adam step), the card against the CPU;
+  8. training at full width: train_bench's main on the flagship, B16 x
+     1500 frames x 40 labels, mixed precision, with the counters checked;
+  9. the K6 path: the same step with the encoder's dropout at 0 and every
+     feed-forward on impl "pallas", against the "xla" step, with K6's
+     counter checked;
 then one JSON line with every kernel's numbers and, last, the result line.
 
 Usage: python3 chip_smoke.py [--batch 32] [--kernels-only]
@@ -420,20 +431,190 @@ def check_topk(g):
 
 
 def log_unported_bounds() -> None:
-    """The bounds of the TPU kernels still to port, from their shapes."""
-    # K6 (ops/ffn_pallas.py): the flagship macaron FFN, x (32 x 2248 rows,
-    # 512) -> 2048 -> 512 in bf16, 2 per block x 12 blocks per forward
-    rows, d, h = 32 * 2248, 512, 2048
-    b6, by6 = bound_ms((2 * rows * d + 2 * d * h + h + d) * 2,
-                       2 * 2 * rows * d * h, PEAK_BF16_FLOPS)
+    """The bound of the TPU kernel still to port, from its shapes."""
     # K7 (tools/repro_tpu_worker_crash.py pinned_call) at the tool's
     # defaults: x (4096, 512) @ 2 buffers of (512, 5120) bf16, bf16 out
-    r7, buffers, h7 = 4096, 2, 5120
+    d, r7, buffers, h7 = 512, 4096, 2, 5120
     b7, by7 = bound_ms((r7 * d + buffers * d * h7 + r7 * h7) * 2,
                        2 * r7 * d * h7 * buffers, PEAK_BF16_FLOPS)
-    log(f"bounds, kernels to port: K6 ffn ({rows}x{d}->{h}->{d} bf16) "
-        f"{b6:.4f} ms ({by6}), 24 per encoder forward; K7 pinned_call "
-        f"({r7}x{d} @ {buffers}x{d}x{h7} bf16) {b7:.4f} ms ({by7})")
+    log(f"bound, kernel to port: K7 pinned_call ({r7}x{d} @ "
+        f"{buffers}x{d}x{h7} bf16) {b7:.4f} ms ({by7})")
+
+
+def check_ffn(g):
+    """K6 at the training step's FFN (16 x 374 rows; f32, since the
+    encoder's activations stay f32 under bf16 weights) with every
+    activation, at the decode main path's FFN (32 x 2248 rows, bf16), and
+    fused_ffn's gradient against autograd through the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from paper_accurate_fast_cheap_tpu_torch.ops import ffn as K
+
+    D, H = 512, 2048
+    w1, b1 = _randn((H, D), g, D ** -0.5), _randn((H,), g, 0.1)
+    w2, b2 = _randn((D, H), g, H ** -0.5), _randn((D,), g, 0.1)
+    x_train = _randn((TRAIN_BATCH * TRAIN_ENC_FRAMES, D), g)
+    x_dec = _randn((32 * 2248, D), g)
+    ok_all, errs = True, {}
+
+    def agree(x, dt, act):
+        # f32: the same f32 products summed in two orders over D = 512 and
+        # H = 2048: 1e-5 of the output scale.  bf16: y rounded to bf16
+        # (2^-8) in both, twice in the plain version (product, bias add),
+        # and a flipped rounding of the bf16 hidden: 1e-2 of the scale.
+        args = (x.to(dt), w1.to(dt), b1.to(dt), w2.to(dt), b2.to(dt), act)
+        yk, yp = K.fused_ffn(*args).float(), K.ffn_plain(*args).float()
+        scale = float(yp.abs().max())
+        err = float((yk - yp).abs().max())
+        lim = (1e-5 if dt == torch.float32 else 1e-2) * scale
+        return err, lim, err <= lim
+
+    for act in K.ACTIVATIONS:
+        for dt in (torch.float32, torch.bfloat16):
+            err, lim, ok = agree(x_train, dt, act)
+            ok_all = ok_all and ok
+            errs[act, dt] = err
+            log(f"K6 ffn {act} {str(dt)[6:]} (R={x_train.shape[0]}): "
+                f"max_abs_err {err:.3e} <= {lim:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+    for dt in (torch.float32, torch.bfloat16):
+        err, lim, ok = agree(x_dec, dt, "swish")
+        ok_all = ok_all and ok
+        log(f"K6 ffn swish {str(dt)[6:]} (R={x_dec.shape[0]}): max_abs_err "
+            f"{err:.3e} <= {lim:.3e} {'ok' if ok else 'FAIL'}")
+
+    # gradient: fused_ffn's backward recomputes through ffn_plain, so it
+    # must equal autograd through ffn_plain up to the f32 forward's rounding
+    # (which the backward does not use): 1e-5 of each gradient's scale
+    leaves = [t.clone().requires_grad_() for t in (x_train, w1, b1, w2, b2)]
+    gy = _randn((x_train.shape[0], D), g)
+    gk = torch.autograd.grad((K.fused_ffn(*leaves) * gy).sum(), leaves)
+    gp = torch.autograd.grad((K.ffn_plain(*leaves) * gy).sum(), leaves)
+    gerr = max(float((a - b).abs().max()) / float(b.abs().max())
+               for a, b in zip(gk, gp))
+    gok = gerr <= 1e-5
+    ok_all = ok_all and gok
+    log(f"K6 fused_ffn gradient (x, W1, b1, W2, b2; f32, R="
+        f"{x_train.shape[0]}) vs autograd through ffn_plain: max rel err "
+        f"{gerr:.3e} <= 1e-5 {'ok' if gok else 'FAIL'}")
+
+    def times(x, dt):
+        args = (x.to(dt), w1.to(dt), b1.to(dt), w2.to(dt), b2.to(dt))
+
+        def library():  # yardstick only: two cuBLAS products
+            return F.linear(F.silu(F.linear(args[0], args[1], args[2])),
+                            args[3], args[4])
+
+        ms = cuda_time_ms(lambda: K.fused_ffn(*args), 10)
+        plain_ms = cuda_time_ms(lambda: K.ffn_plain(*args), 10)
+        lib_ms = cuda_time_ms(library, 10)
+        R, size = x.shape[0], x.element_size()
+        nbytes = (2 * R * D + 2 * D * H + H + D) * size
+        bms, by = bound_ms(nbytes, 4 * R * D * H,
+                           PEAK_F32_FLOPS if dt == torch.float32
+                           else PEAK_BF16_FLOPS)
+        log(f"K6 ffn {str(dt)[6:]} ({R}x{D}->{H}->{D}, swish): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
+            f"ms, bound {bms:.4f} ms ({by})")
+        return ms, plain_ms, lib_ms, bms, by
+
+    times(x_dec, torch.bfloat16)
+    ms, plain_ms, lib_ms, bms, by = times(x_train, torch.float32)
+    return dict(name="ffn", max_abs_err=errs["swish", torch.float32], ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms), ok_all
+
+
+def check_wkv_backward(g) -> bool:
+    """K1 under autograd at the training step's WKV call: B16 x 374 x 8 x 64
+    (1500 feature frames after the two valid stride-2 convolutions of
+    Conv2dSubsampling4).  The forward launches K1, the backward is the
+    analytic wkv6_backward (plain PyTorch).  In f32, with and without a
+    state: y and the final state against wkv6_chunked, the gradients against
+    autograd through wkv6_chunked.  In bf16 with no state, the form the
+    mixed-precision step runs (r, k, v, w and u bf16): y and the gradients
+    against the same plain version run in f32 on the same bf16 values.
+    Then the backward's time per call."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.ops import wkv6 as P
+    from paper_accurate_fast_cheap_tpu_torch.ops import wkv6_cuda as K
+
+    B, T, H, N = TRAIN_BATCH, TRAIN_ENC_FRAMES, 8, 64
+    r, k, v = (_randn((B, T, H, N), g, 0.5) for _ in range(3))
+    w = _randn((B, T, H, N), g, 1.0, -2.0)    # reaches the decay clamp
+    u = _randn((H, N), g, 0.5)
+    s0 = _randn((B, H, N, N), g, 0.1)
+    gy, gs = _randn((B, T, H, N), g), _randn((B, H, N, N), g)
+    names = "r k v w u state".split()
+    rel = lambda a, b: float((a.float() - b).abs().max() / b.abs().max())  # noqa: E731,E501
+    ok_all = True
+    for with_state in (False, True):
+        base = (r, k, v, w, u) + ((s0,) if with_state else ())
+        grads, outs = [], []
+        for fn in (K.wkv6_cuda, P.wkv6_chunked):
+            leaves = [t.clone().requires_grad_() for t in base]
+            out = fn(*leaves[:5], state=leaves[5] if with_state else None,
+                     return_state=with_state)
+            out = out if with_state else (out,)
+            loss = sum((o * c).sum() for o, c in zip(out, (gy, gs)))
+            grads.append(torch.autograd.grad(loss, leaves))
+            outs.append([o.detach() for o in out])
+        # the forward as check_wkv holds it: 1e-4 of the output scale
+        y_err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+        y_scale = float(outs[1][0].abs().max())
+        # f32 sums over T in two orders (the analytic adjoint against
+        # autograd of the chunked form); the decay gradient is a difference
+        # of reverse cumulative sums: 1e-3 of each gradient's scale
+        errs = [rel(a, b) for a, b in zip(*grads)]
+        ok = max(errs) <= 1e-3 and y_err <= 1e-4 * y_scale
+        ok_all = ok_all and ok
+        log(f"K1 forward + backward {'with' if with_state else 'without'} "
+            f"state (f32, {B}x{T}x{H}x{N}): y{', state' * with_state} "
+            f"max_abs_err {y_err:.3e} <= {1e-4 * y_scale:.3e} [1e-4 x "
+            "scale]; gradients vs autograd through wkv6_chunked, max rel "
+            "err " + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, errs))
+            + f" <= 1e-3 {'ok' if ok else 'FAIL'}")
+    # bf16, the step's form.  The plain side runs in f32 on the bf16 values
+    # with the bf16 cotangent.  y: K1's f32 recurrence rounded to bf16, 1e-2
+    # of the output scale (check_wkv's limit).  The backward takes its chunk
+    # products in bf16 operands, as the JAX package's does, and returns bf16
+    # gradients: r, k, v and u within 2e-2 of each gradient's scale (a few
+    # bf16 roundings).  The decay gradient is a difference of reverse
+    # cumulative sums over T of those rounded products, so its largest
+    # elementwise error is a cancellation's, not a rounding's: it is held
+    # in relative L2 norm instead, within 0.1.
+    base = [t.bfloat16() for t in (r, k, v, w, u)]
+    gyb = gy.bfloat16()
+    leaves = [t.clone().requires_grad_() for t in base]
+    y_k = K.wkv6_cuda(*leaves)
+    g_k = torch.autograd.grad((y_k * gyb).sum(), leaves)
+    leaves = [t.float().requires_grad_() for t in base]
+    y_p = P.wkv6_chunked(*leaves)
+    g_p = torch.autograd.grad((y_p * gyb.float()).sum(), leaves)
+    y_err = float((y_k.detach().float() - y_p.detach()).abs().max())
+    y_scale = float(y_p.detach().abs().max())
+    errs = [rel(a, b) for a, b in zip(g_k, g_p)]
+    dw_l2 = float((g_k[3].float() - g_p[3]).norm() / g_p[3].norm())
+    finite = all(bool(torch.isfinite(t).all()) for t in g_k)
+    ok = (y_err <= 1e-2 * y_scale and finite and dw_l2 <= 0.1
+          and max(e for n, e in zip(names, errs) if n != "w") <= 2e-2
+          and all(t.dtype == torch.bfloat16 for t in g_k))
+    ok_all = ok_all and ok
+    log(f"K1 forward + backward bf16 ({B}x{T}x{H}x{N}, no state) vs f32 "
+        f"wkv6_chunked on the same values: y max_abs_err {y_err:.3e} <= "
+        f"{1e-2 * y_scale:.3e} [1e-2 x scale]; gradients max rel err "
+        + ", ".join(f"{n} {e:.2e}" for n, e in zip(names, errs))
+        + f" (r, k, v, u <= 2e-2), w rel L2 {dw_l2:.2e} <= 0.1, finite "
+        f"{finite} {'ok' if ok else 'FAIL'}")
+    for dt in (torch.float32, torch.bfloat16):
+        args = [t.to(dt) for t in (r, k, v, w, u)]
+        ms = cuda_time_ms(lambda: P.wkv6_backward(*args, None, gy.to(dt),
+                                                  None), 5)
+        log(f"K1 backward (wkv6_backward, plain PyTorch, not a kernel) "
+            f"{str(dt)[6:]} ({B}x{T}x{H}x{N}): {ms:.4f} ms per call")
+    return ok_all
 
 
 KERNELS = {
@@ -447,6 +628,8 @@ KERNELS = {
                    "paper_accurate_fast_cheap_tpu/ops/topk_pallas.py:187"),
     "topk": ("paper_accurate_fast_cheap_tpu_torch/csrc/topk.cu",
              "paper_accurate_fast_cheap_tpu/ops/topk_pallas.py:127"),
+    "ffn": ("paper_accurate_fast_cheap_tpu_torch/csrc/ffn.cu",
+            "paper_accurate_fast_cheap_tpu/ops/ffn_pallas.py:80"),
 }
 
 
@@ -505,15 +688,16 @@ def build_model(hat: bool = False):
 
 
 def counters():
-    """Every kernel wrapper of the decode path, by kernel name."""
+    """Every kernel wrapper, by kernel name."""
     from paper_accurate_fast_cheap_tpu_torch.ops import (
-        fused_topk, joint_topk, lstm_step, topk, wkv6_cuda)
+        ffn, fused_topk, joint_topk, lstm_step, topk, wkv6_cuda)
 
     return {"wkv6_fwd": wkv6_cuda.wkv6_cuda,
             "joint_topk": joint_topk.joint_top_k_vocab,
             "lstm_step": lstm_step.lstm_predictor_step,
             "fused_topk": fused_topk.fused_top_k_vocab,
-            "topk": topk.top_k_vocab}
+            "topk": topk.top_k_vocab,
+            "ffn": ffn.fused_ffn}
 
 
 def zero_counts() -> None:
@@ -692,7 +876,7 @@ def phase_main(model, rng, batch):
     counts = read_counts()
     frames = enc.shape[1]
     want = {"wkv6_fwd": 24, "joint_topk": frames, "lstm_step": frames + 1,
-            "fused_topk": 0, "topk": 0}
+            "fused_topk": 0, "topk": 0, "ffn": 0}
     audio_s = batch * WINDOW_S
     ntok = float(np.mean([len(r.tokens) for r in res]))
     hyps = carry["hyps"]
@@ -843,7 +1027,7 @@ def _cli_run(recognize_wav, paths, name, route, card, align_s):
     wall = time.perf_counter() - t0
     counts = read_counts()
     want = {"wkv6_fwd": 24, "joint_topk": 0, "lstm_step": CLI_FRAMES + 1,
-            "fused_topk": 0, "topk": 0}
+            "fused_topk": 0, "topk": 0, "ffn": 0}
     want[route] = CLI_FRAMES
     with open(os.path.join(out, "episode.txt")) as f:
         words = f.read().split()
@@ -859,6 +1043,299 @@ def _cli_run(recognize_wav, paths, name, route, card, align_s):
         for ln in f.read().splitlines():
             log(f"CLI {name} .rtf [{card}]: {ln}")
     return good, counts
+
+
+# The training geometry of bin/train_bench.py's defaults: 16 utterances of
+# 1500 feature frames (15 s) with 40 labels, mixed precision, 2 warm-up and
+# 5 timed steps.
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_LABELS = 16, 1500, 40
+# the encoder's frames: two valid 3x3 stride-2 convolutions
+TRAIN_ENC_FRAMES = ((TRAIN_FRAMES - 1) // 2 - 1) // 2
+TRAIN_WARMUP, TRAIN_ITERS = 2, 5
+
+
+def _train_config(work: str, name: str, **encoder_overrides) -> str:
+    """The flagship's train_bench config as a JSON file (Adam, global-norm
+    clip 5, warmuplr: the JAX CLI's defaults)."""
+    enc = dict(FLAGSHIP_ENCODER, **encoder_overrides)
+    path = os.path.join(work, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(dict(CONFIG, encoder_conf=enc, vocab_size_for_bench=VOCAB),
+                  f)
+    return path
+
+
+def _train_argv(config: str, out: str):
+    return ["--config", config, "--batch_size", str(TRAIN_BATCH), "--frames",
+            str(TRAIN_FRAMES), "--label_len", str(TRAIN_LABELS),
+            "--mixed_precision", "--warmup", str(TRAIN_WARMUP), "--iters",
+            str(TRAIN_ITERS), "--profile", "--output", out]
+
+
+def _report(path: str) -> dict:
+    with open(path) as f:
+        lines = f.read().splitlines()
+    for ln in lines:
+        log(f"  {ln}")
+    return {ln.split()[0]: ln.split(None, 1)[1] for ln in lines}
+
+
+def phase_train_reference() -> bool:
+    """One f32 training step of the flagship from the same weights, the card
+    against the CPU: 2 utterances of 300 feature frames (and 260), 8 labels
+    (and 5).  Dropout off (the two devices draw different bits) and the
+    RWKV's bf16 cast off (it rounds differently on the two)."""
+    import copy
+
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.models import factory
+    from paper_accurate_fast_cheap_tpu_torch.models.rwkv import RWKVAttention
+    from paper_accurate_fast_cheap_tpu_torch.train import schedulers
+    from paper_accurate_fast_cheap_tpu_torch.train import train_step as ts
+
+    g = torch.Generator().manual_seed(5)
+    B, T, U = 2, 300, 8
+    batch = (torch.randn(B, T, 80, generator=g), torch.tensor([T, T - 40]),
+             torch.randint(1, VOCAB, (B, U), generator=g),
+             torch.tensor([U, U - 3]))
+    model, _ = factory.init_model(CONFIG, VOCAB, 80, device="cpu",
+                                  generator=torch.Generator().manual_seed(3))
+    for mod in model.modules():
+        if isinstance(mod, RWKVAttention):
+            mod.do_bfloat16 = False
+    lr = 1e-3  # steadylr with warmup 1: the first step at the full rate
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        opt = ts.make_optimizer("adam", schedulers.steady_lr(lr, 1),
+                                grad_clip=5.0)
+
+        def loss_fn(p, mb, seed, m=m):
+            return torch.func.functional_call(m, p, mb)["loss"], {}
+
+        params = {n: p.detach() for n, p in m.named_parameters()}
+        state, loss, met = ts.make_train_step(loss_fn, opt)(
+            ts.init_train_state(params, opt),
+            tuple(x.to(dev) for x in batch), 0)
+        delta = torch.cat([(state.params[n] - params[n]).flatten().cpu()
+                           for n in params])
+        out[dev] = (float(loss), float(met["grad_norm"]), delta)
+        del m, state
+    (lc, gc, dc), (lp, gp, dp) = out["cuda"], out["cpu"]
+    # f32 on both sides, summation order only (no TF32): the loss and the
+    # gradient norm within 1e-3 relative, the decode reference's class.
+    # Adam's first update is lr * g / (|g| + eps) per element, so the
+    # updates agree where |g| is above the rounding noise and may flip sign
+    # where it is not: their difference within 1e-2 of their L2 norm.
+    l_err, g_err = abs(lc - lp) / abs(lp), abs(gc - gp) / gp
+    u_err = float((dc - dp).norm() / dp.norm())
+    ok = (l_err <= 1e-3 and g_err <= 1e-3 and u_err <= 1e-2
+          and np.isfinite(lc))
+    log(f"training reference (flagship, f32, {B} x {T} frames, {U} labels, "
+        f"card vs CPU): loss {lc:.4f} vs {lp:.4f} (rel {l_err:.2e} <= 1e-3), "
+        f"grad norm {gc:.4f} vs {gp:.4f} (rel {g_err:.2e} <= 1e-3), "
+        f"Adam update (lr {lr:.0e}) rel L2 {u_err:.2e} <= 1e-2 "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def profile_train_step(bench) -> None:
+    """Where a prepared train_bench step spends its time.  First the step's
+    timeline split at the encoder's boundary by CUDA events (no profiler);
+    then one step under torch.profiler: its wall time, the device's busy
+    time (every kernel and copy), the device time of the forward's parts
+    (ranges opened around the encoder, the predictor, the CTC head, the
+    chunked joint gather and the RNN-T recursion) and of the backward's
+    autograd nodes, and the kernels with the most device time."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paper_accurate_fast_cheap_tpu_torch.models import transducer
+
+    def ranged(mod, name):
+        open_ = []
+        pre = mod.register_forward_pre_hook(
+            lambda *a: open_.append(record_function(name).__enter__()))
+        post = mod.register_forward_hook(
+            lambda *a: open_.pop().__exit__(None, None, None))
+        return [pre, post]
+
+    def ranged_fn(name, fn):
+        def inner(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return inner
+
+    m, rnnt = bench.model, transducer.rnnt
+    # the step's timeline split at the encoder's boundary, by CUDA events
+    # recorded where the encoder's forward ends and where its output's
+    # gradient is ready (the loss head's backward done, the encoder's next)
+    marks = {}
+
+    def mark(name):
+        marks[name] = torch.cuda.Event(enable_timing=True)
+        marks[name].record()
+
+    def at_encoder_output(mod, args, out):
+        mark("encoder forward")
+        out[0].register_hook(lambda g: mark("encoder output grad"))
+
+    hook = m.encoder.register_forward_hook(at_encoder_output)
+    try:
+        for _ in range(2):  # the second step is read
+            mark("start")
+            bench.step_fn(bench.state, bench.batch, 3, mark=mark)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    order = ("start", "encoder forward", "forward", "encoder output grad",
+             "backward", "optimizer")
+    names = ("encoder forward", "loss head forward (predictor, joint, "
+             "RNN-T, CTC)", "loss head backward", "encoder backward",
+             "clip + optimizer")
+    split = [marks[a].elapsed_time(marks[b]) for a, b in zip(order,
+                                                             order[1:])]
+    log(f"training step split (CUDA events, {sum(split):.1f} ms): "
+        + ", ".join(f"{n} {ms:.1f} ms" for n, ms in zip(names, split)))
+    hooks = (ranged(m.encoder, "fwd encoder") + ranged(m.predictor,
+                                                       "fwd predictor")
+             + ranged(m.ctc, "fwd ctc head"))
+    fns = {n: getattr(rnnt, n) for n in ("gather_rnnt_logprobs_chunked",
+                                         "rnnt_forward")}
+    for n, fn in fns.items():
+        setattr(rnnt, n, ranged_fn(f"fwd {n}", fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            bench.step_fn(bench.state, bench.batch, 3)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for h in hooks:
+            h.remove()
+        for n, fn in fns.items():
+            setattr(rnnt, n, fn)
+    events = prof.events()
+    kernels, parts, spans, nodes = (collections.Counter() for _ in range(4))
+    for e in events:
+        ms = e.device_time_total / 1e3
+        if e.name.startswith("fwd "):
+            # the range on the host (device time of its kernels) and its
+            # copy on the device's timeline (the span it covers there)
+            (spans if e.device_type == DeviceType.CUDA else parts)[
+                e.name[4:]] += ms
+        elif e.device_type == DeviceType.CUDA:
+            kernels[e.name] += ms
+        elif e.name.startswith("autograd::engine::evaluate_function: "):
+            nodes[e.name.split(": ", 1)[1]] += ms
+    busy = sum(kernels.values())
+    log(f"training step profile (torch.profiler, one step): wall "
+        f"{wall:.1f} ms (profiled), device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f}%), {len(kernels)}"
+        " kernel names")
+    log("  forward parts (device ms of their kernels / span on the device's "
+        "timeline): " + ", ".join(f"{k} {v:.1f} / {spans[k]:.1f}"
+                                  for k, v in parts.most_common()))
+    log(f"  backward nodes (device ms, {sum(nodes.values()):.1f} in all): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in nodes.most_common(12)))
+    log("  kernels (device ms): " + ", ".join(
+        f"{k[:60]} {v:.1f}" for k, v in kernels.most_common(10)))
+
+
+def phase_train(work: str):
+    """train_bench's main on the flagship at full width, the counters set
+    to 0 just before and read just after.  Returns (ok, counts)."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import train_bench
+
+    out = os.path.join(work, "train.bench")
+    argv = _train_argv(_train_config(work, "flagship_train"), out)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = train_bench.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    forwards = TRAIN_WARMUP + TRAIN_ITERS
+    want = {n: 0 for n in counts}
+    want["wkv6_fwd"] = 24 * forwards
+    log(f"training (train_bench.main, flagship, B{TRAIN_BATCH} x "
+        f"{TRAIN_FRAMES} frames x {TRAIN_LABELS} labels, mixed precision, "
+        "impl xla): "
+        f"{wall:.2f} s with the model build; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rep = _report(out)
+    loss = float(rep["final_loss"])
+    ok = rc == 0 and counts == want and np.isfinite(loss)
+    log(f"training counters {json.dumps(counts)}, expected "
+        f"{json.dumps(want)} (24 per forward x {forwards}), loss finite "
+        f"{np.isfinite(loss)} {'ok' if ok else 'FAIL'}")
+    profile_train_step(train_bench.prepare(train_bench.get_args(argv)))
+    return ok, counts
+
+
+def phase_train_k6(work: str):
+    """The same step with the encoder's dropout at 0 and every feed-forward
+    on impl "pallas" (K6), against the impl "xla" step from the same state,
+    batch and seed; then train_bench's timed run on the K6 path, the
+    counters set to 0 just before and read just after.  Returns (ok,
+    counts)."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import train_bench
+    from paper_accurate_fast_cheap_tpu_torch.models.convolution import (
+        PositionwiseFeedForward)
+
+    args = train_bench.get_args(_train_argv(
+        _train_config(work, "flagship_train_k6", dropout_rate=0.0),
+        os.path.join(work, "train_k6.bench")))
+    bench = train_bench.prepare(args)
+    ffns = [m for m in bench.model.modules()
+            if isinstance(m, PositionwiseFeedForward)]
+
+    def one_step(impl):
+        for m in ffns:
+            m.impl = impl
+        zero_counts()
+        _, loss, met = bench.step_fn(bench.state, bench.batch, 7)
+        return float(loss), float(met["grad_norm"]), read_counts()["ffn"]
+
+    lx, gx, nx = one_step("xla")
+    lp, gp, np_ = one_step("pallas")
+    # K6 computes the FFN in f32 here (f32 activations, bf16-valued
+    # weights), as the xla path does, up to summation order; the outputs
+    # then meet the RWKV's bf16 input cast, where a flipped rounding moves
+    # an element by 2^-8: loss within 1e-3, gradient norm within 1e-2
+    l_err, g_err = abs(lp - lx) / abs(lx), abs(gp - gx) / gx
+    cmp_ok = (l_err <= 1e-3 and g_err <= 1e-2 and nx == 0
+              and np_ == len(ffns) == 24)
+    log(f"K6 path step vs xla step (same state, batch, seed 7): loss {lp:.4f}"
+        f" vs {lx:.4f} (rel {l_err:.2e} <= 1e-3), grad norm {gp:.4f} vs "
+        f"{gx:.4f} (rel {g_err:.2e} <= 1e-2), K6 launches {np_} (xla: {nx}) "
+        f"of {len(ffns)} feed-forwards {'ok' if cmp_ok else 'FAIL'}")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    report = train_bench.run(bench, args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for ln in report.splitlines():
+        log(f"  {ln}")
+    forwards = TRAIN_WARMUP + TRAIN_ITERS
+    want = {n: 0 for n in counts}
+    want["wkv6_fwd"] = want["ffn"] = 24 * forwards
+    ok = cmp_ok and counts == want
+    log(f"K6 path training: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; counters "
+        f"{json.dumps(counts)}, expected {json.dumps(want)} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, counts
 
 
 def main() -> int:
@@ -883,12 +1360,14 @@ def main() -> int:
     g.manual_seed(0)
     rows, ok = [], True
     for check in (check_wkv, check_joint_topk, check_lstm, check_fused_topk,
-                  check_topk):
+                  check_topk, check_ffn):
         row, good = check(g)
         torch.cuda.synchronize()
         rows.append(row)
         ok = ok and good
     failed = [] if ok else ["kernels vs plain"]
+    if not check_wkv_backward(g):
+        failed.append("K1 backward vs autograd")
     log_unported_bounds()
     if args.kernels_only:
         return 1 if failed else 0
@@ -915,6 +1394,14 @@ def main() -> int:
         cli_ok, hat_counts = phase_cli(paths, card)
         if not cli_ok:
             failed.append("recognize_wav CLI")
+        if not phase_train_reference():
+            failed.append("training reference")
+        train_ok, train_counts = phase_train(work)
+        if not train_ok:
+            failed.append("training")
+        k6_ok, k6_counts = phase_train_k6(work)
+        if not k6_ok:
+            failed.append("K6 path")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failed:
@@ -927,6 +1414,12 @@ def main() -> int:
                               f"recognize_wav CLI, HAT flagship "
                               f"({CLI_WINDOWS} x 90 s, bf16)")
     launches["topk"] = (k5_launches, "reference, xla route (2 x 3 s, f32)")
+    launches["ffn"] = (k6_counts["ffn"],
+                       f"train_bench K6 path ({TRAIN_WARMUP + TRAIN_ITERS} "
+                       f"steps, B{TRAIN_BATCH} x {TRAIN_FRAMES} frames, "
+                       "mixed precision, encoder dropout 0, impl pallas)")
+    log(f"K1 launches in training: {train_counts['wkv6_fwd']} "
+        f"({TRAIN_WARMUP + TRAIN_ITERS} steps x 24 per forward)")
     for row in rows:
         src, rep = KERNELS[row["name"]]
         n, path = launches[row["name"]]

@@ -2,11 +2,12 @@
 of the JAX ``models/conformer.py``).
 
 Block order (pre-norm, LayerNorm eps 1e-5): macaron FFN x0.5 -> attention
--> conv module -> FFN x0.5 -> final norm.  Submodule names follow the flax
-tree (``embed``, ``layer_{i}``, ``RWKVAttention_{i}``, ``after_norm``) so
-``convert.state_dict_from_jax`` is layout work only.  As in flax, the
-attention modules sit on the encoder, not inside their layers; layer i is
-called with ``RWKVAttention_{i}``.
+-> conv module -> FFN x0.5 -> final norm, with dropout on each branch
+before its residual add (active in ``.train()``).  Submodule names follow
+the flax tree (``embed``, ``layer_{i}``, ``RWKVAttention_{i}``,
+``after_norm``) so ``convert.state_dict_from_jax`` is layout work only.  As
+in flax, the attention modules sit on the encoder, not inside their layers;
+layer i is called with ``RWKVAttention_{i}``.
 """
 from __future__ import annotations
 
@@ -49,29 +50,32 @@ class ConformerEncoderLayer(nn.Module):
     """One conformer block (pre-norm, macaron, conv module)."""
 
     def __init__(self, d_model: int, linear_units: int,
-                 cnn_module_kernel: int = 31,
+                 dropout_rate: float = 0.1, cnn_module_kernel: int = 31,
                  cnn_module_norm: str = "layer_norm",
                  activation: str = "swish"):
         super().__init__()
         ln = lambda: nn.LayerNorm(d_model, eps=1e-5)  # noqa: E731
+        ffn = lambda: PositionwiseFeedForward(  # noqa: E731
+            d_model, linear_units, dropout_rate, activation)
         self.norm_ff_macaron = ln()
-        self.feed_forward_macaron = PositionwiseFeedForward(
-            d_model, linear_units, activation)
+        self.feed_forward_macaron = ffn()
         self.norm_mha = ln()
         self.norm_conv = ln()
         self.conv_module = ConvolutionModule(d_model, cnn_module_kernel,
                                              cnn_module_norm)
         self.norm_ff = ln()
-        self.feed_forward = PositionwiseFeedForward(d_model, linear_units,
-                                                    activation)
+        self.feed_forward = ffn()
         self.norm_final = ln()
+        self.dropout = nn.Dropout(dropout_rate)
 
     def forward(self, x, attn: nn.Module, pad_mask=None, lengths=None):
-        x = x + 0.5 * self.feed_forward_macaron(
-            layer_norm(self.norm_ff_macaron, x))
-        x = x + attn(layer_norm(self.norm_mha, x), lengths=lengths)
-        x = x + self.conv_module(layer_norm(self.norm_conv, x), pad_mask)
-        x = x + 0.5 * self.feed_forward(layer_norm(self.norm_ff, x))
+        drop = self.dropout
+        x = x + 0.5 * drop(self.feed_forward_macaron(
+            layer_norm(self.norm_ff_macaron, x)))
+        x = x + drop(attn(layer_norm(self.norm_mha, x), lengths=lengths))
+        x = x + drop(self.conv_module(layer_norm(self.norm_conv, x),
+                                      pad_mask))
+        x = x + 0.5 * drop(self.feed_forward(layer_norm(self.norm_ff, x)))
         return layer_norm(self.norm_final, x)
 
 
@@ -84,7 +88,9 @@ class ConformerEncoder(nn.Module):
 
     def __init__(self, input_size: int = 80, output_size: int = 512,
                  attention_heads: int = 8, linear_units: int = 2048,
-                 num_blocks: int = 12, input_layer: str = "conv2d",
+                 num_blocks: int = 12, dropout_rate: float = 0.1,
+                 positional_dropout_rate: float = 0.1,
+                 input_layer: str = "conv2d",
                  pos_enc_layer_type: str = "rel_pos",
                  normalize_before: bool = True, macaron_style: bool = True,
                  use_cnn_module: bool = True, cnn_module_kernel: int = 31,
@@ -103,13 +109,14 @@ class ConformerEncoder(nn.Module):
         rwkv_conf = dict(rwkv_conf or {})
         self.num_blocks = num_blocks
         self.embed = Conv2dSubsampling4(input_size, output_size)
-        self.pos_enc = RelPositionalEncoding(output_size)
+        self.pos_enc = RelPositionalEncoding(output_size,
+                                             positional_dropout_rate)
         for i in range(num_blocks):
             setattr(self, f"RWKVAttention_{i}", _make_attention(
                 selfattention_layer_type, attention_heads, output_size,
                 num_blocks, i, rwkv_conf))
             setattr(self, f"layer_{i}", ConformerEncoderLayer(
-                output_size, linear_units, cnn_module_kernel,
+                output_size, linear_units, dropout_rate, cnn_module_kernel,
                 cnn_module_norm, activation_type))
         self.after_norm = nn.LayerNorm(output_size, eps=1e-5)
 

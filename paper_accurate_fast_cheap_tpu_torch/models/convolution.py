@@ -1,9 +1,9 @@
 """Conformer convolution module and feed-forward (port of the JAX
 ``models/convolution.py``; non-causal, layer_norm, no cache).
 
-The fused FFN kernel of the JAX package (``ops/ffn_pallas.py``) is off by
-default there and is not on this path; the port's FFN is two plain
-products.
+``PositionwiseFeedForward(impl="pallas")`` runs K6, the fused FFN kernel
+(``ops/ffn.py``), while dropout is inactive, as the JAX module does; the
+default ``impl="xla"`` runs two plain products.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from paper_accurate_fast_cheap_tpu_torch.models.layers import (
     conv, dense, layer_norm)
+from paper_accurate_fast_cheap_tpu_torch.ops.ffn import ACTIVATIONS, fused_ffn
 
 
 class ConvolutionModule(nn.Module):
@@ -52,14 +53,32 @@ class ConvolutionModule(nn.Module):
 
 
 class PositionwiseFeedForward(nn.Module):
-    """Linear -> swish -> Linear."""
+    """Linear -> activation -> dropout -> Linear.
 
-    def __init__(self, d_model: int, hidden: int, activation: str = "swish"):
+    ``impl``: ``"xla"`` (default, two products), ``"pallas"`` (K6 while
+    dropout is inactive: in ``.eval()`` or at rate 0) or ``"auto"``, which
+    resolves to ``"xla"`` (the JAX package's ``PAFC_FFN_IMPL`` switch is not
+    ported).  Both share the ``Dense_0``/``Dense_1`` parameters.
+    """
+
+    def __init__(self, d_model: int, hidden: int, dropout_rate: float = 0.1,
+                 activation: str = "swish", impl: str = "xla"):
         super().__init__()
-        if activation != "swish":
+        if activation not in ACTIVATIONS:
             raise NotImplementedError(f"ffn activation {activation!r}")
+        if impl not in ("xla", "pallas", "auto"):
+            raise ValueError(f"ffn impl {impl!r} not in xla/pallas/auto")
+        self.activation = activation
+        self.impl = impl
         self.Dense_0 = nn.Linear(d_model, hidden)
+        self.dropout = nn.Dropout(dropout_rate)
         self.Dense_1 = nn.Linear(hidden, d_model)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(self.Dense_1, F.silu(dense(self.Dense_0, x)))
+        drop_active = self.training and self.dropout.p > 0.0
+        if self.impl == "pallas" and not drop_active:
+            return fused_ffn(x, self.Dense_0.weight, self.Dense_0.bias,
+                             self.Dense_1.weight, self.Dense_1.bias,
+                             self.activation)
+        y = ACTIVATIONS[self.activation](dense(self.Dense_0, x))
+        return dense(self.Dense_1, self.dropout(y))

@@ -24,14 +24,15 @@ def sinusoid_positions(offset: int, T: int, d_model: int,
 
 class RelPositionalEncoding(nn.Module):
     """Transformer-XL style: scales x by sqrt(d) (in x's dtype) and returns
-    the sinusoid table separately as (1, T, d)."""
+    the sinusoid table separately as (1, T, d); dropout on both."""
 
-    def __init__(self, d_model: int):
+    def __init__(self, d_model: int, dropout_rate: float = 0.1):
         super().__init__()
         self.d_model = d_model
+        self.dropout = nn.Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor, offset: int = 0):
         pos = sinusoid_positions(offset, x.shape[1], self.d_model,
                                  x.device)[None]
         scale = torch.sqrt(torch.tensor(float(self.d_model), dtype=x.dtype))
-        return x * scale.to(x.device), pos
+        return self.dropout(x * scale.to(x.device)), self.dropout(pos)

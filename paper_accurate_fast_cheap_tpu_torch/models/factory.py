@@ -53,7 +53,8 @@ def init_model(config: Dict[str, Any], vocab_size: int, input_dim: int = 80,
 
     Weights are drawn on the CPU from ``generator`` (seed 0 if None) with
     flax's default initializers, then moved to ``device`` (``cuda`` unless
-    the caller asks for the CPU).  Returns (model, "transducer").
+    the caller asks for the CPU).  Returns (model, "transducer") in
+    ``.eval()`` mode; call ``.train()`` for dropout.
     """
     dev = resolve_device(device)
     model_type = config.get("model", "asr_model")
@@ -69,12 +70,18 @@ def init_model(config: Dict[str, Any], vocab_size: int, input_dim: int = 80,
     joint_conf.pop("enc_output_size", None)
     joint_conf.pop("pred_output_size", None)
     pred_conf = dict(config.get("predictor_conf", {}))
-    for k in ("rnn_type", "bias", "embed_dropout", "dropout"):
+    # keys the reference's predictor takes but this one fixes (lstm, bias)
+    for k in ("rnn_type", "bias"):
         pred_conf.pop(k, None)
+    model_conf = config.get("model_conf", {})
     model = Transducer(
         vocab_size=vocab_size, encoder_conf=enc_conf,
         predictor_conf=pred_conf, joint_conf=joint_conf,
-        blank_id=config.get("ctc_conf", {}).get("ctc_blank_id", 0))
+        blank_id=config.get("ctc_conf", {}).get("ctc_blank_id", 0),
+        transducer_weight=model_conf.get("transducer_weight", 0.3),
+        ctc_weight=model_conf.get("ctc_weight", 0.2),
+        attention_weight=model_conf.get("attention_weight", 0.5),
+        has_decoder=config.get("decoder") is not None)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_default(model, generator)

@@ -1,6 +1,9 @@
 """Transducer joint (port of the JAX ``models/joint.py``: add mode, tanh,
 pre-join projections, no post-join projection; the standard ``ffn_out``
-head or the HAT head of ``blank_pred`` and ``token_pred``)."""
+head or the HAT head of ``blank_pred`` and ``token_pred``).
+
+``joint_projected`` is the joint over already projected inputs, which the
+chunked RNN-T loss calls per T-chunk (``ops/rnnt.py``)."""
 from __future__ import annotations
 
 import torch
@@ -45,7 +48,13 @@ class TransducerJoint(nn.Module):
     def single_step(self, enc_t: torch.Tensor, pred_u: torch.Tensor):
         """enc_t (B, De), pred_u (B, Dp) -> (B, V) logits (HAT: the
         blank log-probability, then the token log-probabilities)."""
-        x = self.preact(self.project_enc(enc_t), pred_u)
+        return self.joint_projected(self.project_enc(enc_t),
+                                    self.project_pred(pred_u))
+
+    def joint_projected(self, enc_p: torch.Tensor, pred_p: torch.Tensor):
+        """Add, tanh and the vocabulary head over projected inputs that
+        broadcast against each other (e.g. (B, T, 1, J) and (B, 1, U, J))."""
+        x = torch.tanh(enc_p + pred_p)
         if not self.hat_joint:
             return dense(self.ffn_out, x)
         blank_logp = F.logsigmoid(dense(self.blank_pred, x))

@@ -1,9 +1,13 @@
 """LSTM transducer predictor (port of the JAX ``models/predictor.py``
-``RNNPredictor`` decode surface).
+``RNNPredictor``).
 
-Each step gathers the embeddings of the last tokens and runs every LSTM
-layer and the output projection through K3 (``ops/lstm_step.py``), the
-port of the fused predictor branch of the JAX device beam.  Gate order is
+Decode: each step gathers the embeddings of the last tokens and runs every
+LSTM layer and the output projection through K3 (``ops/lstm_step.py``), the
+port of the fused predictor branch of the JAX device beam.  Training
+(:meth:`RNNPredictor.forward`) runs the whole blank-prepended label
+sequence: embed -> dropout -> LSTM stack (dropout between layers) ->
+projection, each layer a plain time loop of the same gate math (the JAX
+package runs it as ``lax.scan`` in XLA, not in its kernel).  Gate order is
 i, f, g, o; ``ih`` carries the bias, ``hh`` none.  The state is f32 even
 under bf16 weights, as ``init_state`` is in JAX.
 """
@@ -12,7 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from paper_accurate_fast_cheap_tpu_torch.models.layers import orthogonal_
+from paper_accurate_fast_cheap_tpu_torch.models.layers import (
+    dense, orthogonal_)
 from paper_accurate_fast_cheap_tpu_torch.ops.lstm_step import (
     lstm_predictor_step)
 
@@ -29,17 +34,36 @@ class LSTMLayer(nn.Module):
     def reset_parameters_from(self, g: torch.Generator) -> None:
         orthogonal_(self.hh, g)
 
+    def forward(self, xs: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+        """xs (B, U, E), h and c (B, H) -> outputs (B, U, H).  Dtypes
+        promote as in flax: an f32 state over bf16 weights runs the
+        recurrence in f32."""
+        x_proj = dense(self.ih, xs)
+        hh = self.hh.to(torch.promote_types(h.dtype, self.hh.dtype))
+        outs = []
+        for t in range(xs.shape[1]):
+            gates = x_proj[:, t] + h @ hh.T
+            i, f, g, o = gates.chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            outs.append(h)
+        return torch.stack(outs, dim=1)
+
 
 class RNNPredictor(nn.Module):
-    """embed -> LSTM stack -> projection (dropout is a training concern)."""
+    """embed -> dropout -> LSTM stack (dropout between layers) ->
+    projection; dropout is active in ``.train()`` only."""
 
     def __init__(self, vocab_size: int, embed_size: int = 640,
                  hidden_size: int = 640, output_size: int = 640,
-                 num_layers: int = 2):
+                 num_layers: int = 2, embed_dropout: float = 0.1,
+                 dropout: float = 0.1):
         super().__init__()
         self.num_layers = num_layers
         self.hidden_size = hidden_size
         self.embed = nn.Embedding(vocab_size, embed_size)
+        self.embed_dropout = nn.Dropout(embed_dropout)
+        self.dropout = nn.Dropout(dropout)
         for i in range(num_layers):
             setattr(self, f"lstm_{i}", LSTMLayer(
                 embed_size if i == 0 else hidden_size, hidden_size))
@@ -49,6 +73,17 @@ class RNNPredictor(nn.Module):
         z = torch.zeros(self.num_layers, batch_size, self.hidden_size,
                         device=self.projection.weight.device)
         return z, z.clone()
+
+    def forward(self, ys: torch.Tensor) -> torch.Tensor:
+        """Training forward: ys (B, U) token ids (blank-prepended) -> (B, U,
+        output_size), from the zero state."""
+        x = self.embed_dropout(self.embed(ys.long()))
+        hs, cs = self.init_state(ys.shape[0])
+        for i in range(self.num_layers):
+            x = getattr(self, f"lstm_{i}")(x, hs[i], cs[i])
+            if i < self.num_layers - 1:
+                x = self.dropout(x)
+        return dense(self.projection, x)
 
     def forward_step(self, ys_last: torch.Tensor, state):
         """ys_last (B,), state (hs, cs) (L, B, H) -> (out (B, O), state)."""

@@ -1,5 +1,12 @@
-"""Transducer model: the decode surfaces of the JAX ``models/transducer.py``
-(the combined training loss waits for the training slice)."""
+"""Transducer model (port of the JAX ``models/transducer.py``): the training
+loss and the decode surfaces.
+
+``forward`` is the combined loss ``transducer_weight * rnnt + ctc_weight *
+ctc + attention_weight * att`` of the JAX ``loss_from_encoder``, with the
+RNN-T lattice's joint computed in T-chunks of ``RNNT_T_CHUNK`` frames
+(``ops/rnnt.py``).  The attention decoder is not ported, so ``loss_att`` is
+0.
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,15 +16,24 @@ import torch.nn as nn
 
 from paper_accurate_fast_cheap_tpu_torch.models.conformer import (
     ConformerEncoder)
-from paper_accurate_fast_cheap_tpu_torch.models.ctc_head import CTCHead
+from paper_accurate_fast_cheap_tpu_torch.models.ctc_head import (
+    CTCHead, ctc_loss)
 from paper_accurate_fast_cheap_tpu_torch.models.joint import TransducerJoint
 from paper_accurate_fast_cheap_tpu_torch.models.predictor import RNNPredictor
+from paper_accurate_fast_cheap_tpu_torch.ops import rnnt
+from paper_accurate_fast_cheap_tpu_torch.ops.common import add_blank
+
+# encoder frames per chunk of the joint in the RNN-T loss (the JAX
+# Transducer's rnnt_t_chunk)
+RNNT_T_CHUNK = 16
 
 
 class Transducer(nn.Module):
     def __init__(self, vocab_size: int, encoder_conf: dict,
                  predictor_conf: Optional[dict] = None,
-                 joint_conf: Optional[dict] = None, blank_id: int = 0):
+                 joint_conf: Optional[dict] = None, blank_id: int = 0,
+                 transducer_weight: float = 0.3, ctc_weight: float = 0.2,
+                 attention_weight: float = 0.5, has_decoder: bool = False):
         super().__init__()
         enc_conf = dict(encoder_conf)
         pred_conf = dict(predictor_conf or {})
@@ -28,10 +44,49 @@ class Transducer(nn.Module):
                               pred_conf.get("output_size", 640))
         self.vocab_size = vocab_size
         self.blank_id = blank_id
+        self.transducer_weight = transducer_weight
+        self.ctc_weight = ctc_weight
+        self.attention_weight = attention_weight
+        # the attention decoder's parameters are not built: decode ignores
+        # it, and its training loss raises (forward)
+        self.has_decoder = has_decoder
         self.encoder = ConformerEncoder(**enc_conf)
         self.predictor = RNNPredictor(vocab_size=vocab_size, **pred_conf)
         self.joint = TransducerJoint(vocab_size=vocab_size, **joint_conf)
         self.ctc = CTCHead(enc_dim, vocab_size)
+
+    # ---- training ----
+
+    def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
+                labels: torch.Tensor, label_lens: torch.Tensor):
+        """The combined loss: {"loss", "loss_rnnt", "loss_ctc", "loss_att",
+        "th_accuracy"}.  Dropout follows ``.train()``/``.eval()``."""
+        if self.has_decoder and self.attention_weight > 0.0:
+            raise NotImplementedError(
+                "the attention decoder's loss (decoder: bitransformer) waits "
+                "for ROADMAP Queue 1 item 9; train with decoder: None or "
+                "model_conf.attention_weight: 0")
+        enc, enc_lens = self.encoder(feats, feat_lens)
+        ys_blank = add_blank(labels, label_lens, self.blank_id)
+        pred_out = self.predictor(ys_blank)
+        enc_p = self.joint.project_enc(enc)
+        pred_p = self.joint.project_pred(pred_out)
+        lab_lp, blank_lp = rnnt.gather_rnnt_logprobs_chunked(
+            enc_p, pred_p, labels, self.joint.joint_projected,
+            blank_id=self.blank_id, t_chunk=RNNT_T_CHUNK)
+        loss_rnnt = rnnt.rnnt_forward(lab_lp, blank_lp, enc_lens,
+                                      label_lens).mean()
+        zero = torch.zeros((), device=enc.device)
+        loss_ctc = zero
+        if self.ctc_weight > 0.0:
+            loss_ctc = ctc_loss(self.ctc(enc), enc_lens, labels, label_lens,
+                                blank_id=self.blank_id)
+        loss_att = zero
+        loss = (self.transducer_weight * loss_rnnt
+                + self.ctc_weight * loss_ctc
+                + self.attention_weight * loss_att)
+        return {"loss": loss, "loss_rnnt": loss_rnnt, "loss_ctc": loss_ctc,
+                "loss_att": loss_att, "th_accuracy": zero}
 
     # ---- inference surfaces ----
 

@@ -22,7 +22,8 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("wkv6_fwd", "joint_topk", "lstm_step", "fused_topk", "topk")
+SOURCES = ("wkv6_fwd", "joint_topk", "lstm_step", "fused_topk", "topk",
+           "ffn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

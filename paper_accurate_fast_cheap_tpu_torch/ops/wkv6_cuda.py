@@ -5,6 +5,11 @@ two-pass path, and the generations that compute the same y).  For a CUDA
 tensor :func:`wkv6_cuda` launches the kernel or raises; for a CPU tensor it
 runs the plain version, ``ops/wkv6.wkv6_chunked`` (same recurrence, same
 decay clamp).
+
+:func:`wkv6_cuda` is differentiable: its backward is the analytic
+``ops/wkv6.wkv6_backward`` (chunk 256, inner 16), plain PyTorch products as
+the JAX package's XLA backward, from the saved inputs alone.  The launch
+counter counts forward launches only.
 """
 from __future__ import annotations
 
@@ -15,7 +20,8 @@ import numpy as np
 import torch
 
 from paper_accurate_fast_cheap_tpu_torch.ops import cuda_lib
-from paper_accurate_fast_cheap_tpu_torch.ops.wkv6 import wkv6_chunked
+from paper_accurate_fast_cheap_tpu_torch.ops.wkv6 import (
+    wkv6_backward, wkv6_chunked)
 
 # the inner-block overflow guard of the chunked/TPU forms (S = 16)
 W_CLAMP = float(np.log(160.0 / 18.0))
@@ -30,7 +36,34 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               return_state: bool = False):
     """WKV6 forward.  r, k, v, w: (B, T, H, N) float32 or bfloat16, one
     dtype; u: (H, N); state: optional (B, H, N, N) f32.  Returns y (B, T, H,
-    N) in r's dtype, and the final f32 state when ``return_state``."""
+    N) in r's dtype, and the final f32 state when ``return_state``.
+    Differentiable in every tensor argument."""
+    out = _WKV6.apply(r, k, v, w, u, state, return_state)
+    return out if return_state else out[0]
+
+
+class _WKV6(torch.autograd.Function):
+    """Forward: K1 (or the plain version on the CPU).  Backward: the
+    analytic ``wkv6_backward`` from the saved primal inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, return_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        out = _forward(r, k, v, w, u, state, return_state)
+        return out if return_state else (out,)
+
+    @staticmethod
+    def backward(ctx, gy, gstate=None):
+        r, k, v, w, u, state = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(r)
+        grads = wkv6_backward(r, k, v, w, u, state, gy, gstate,
+                              chunk_size=256, inner_size=16)
+        return (*grads, None)
+
+
+def _forward(r, k, v, w, u, state, return_state):
     if r.device.type != "cuda":
         return wkv6_chunked(r, k, v, w, u, state=state,
                             return_state=return_state)

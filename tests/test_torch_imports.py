@@ -35,6 +35,10 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 20
+    # the training slice's modules are among those imported
+    assert {f"{PKG}.{m}" for m in (
+        "ops.ffn", "ops.rnnt", "train.schedulers", "train.train_step",
+        "bin.train_bench")} <= set(mods)
 
 
 def test_port_sources_do_not_name_the_jax_package():
@@ -68,7 +72,8 @@ def test_entry_points_default_to_cuda():
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch import resolve_device
-    from paper_accurate_fast_cheap_tpu_torch.bin import recognize_wav
+    from paper_accurate_fast_cheap_tpu_torch.bin import (
+        recognize_wav, train_bench)
     from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
     from paper_accurate_fast_cheap_tpu_torch.models import factory
 
@@ -90,5 +95,7 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         recognize_wav.main(["--config", "c.json", "--checkpoint", "m.pt",
                             "--wav", "x.wav", "--output_dir", "out"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_bench.main(["--config", "c.json"])
     model, _ = factory.init_model(conf, 40, 80, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
