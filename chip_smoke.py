@@ -9,10 +9,11 @@ Phases, each fatal on failure (no phase is skipped or caught):
      shapes its paths give it, in float32 and bfloat16, with its time,
      the plain version's time, a library yardstick where one exists, and
      the least time the card could take (bound); K6's gradient against
-     autograd through its plain version; K1 under autograd at the
-     training step's shape (its analytic backward is plain PyTorch), in
-     f32 and in the step's bf16, y and gradients against the chunked WKV,
-     with the backward's time;
+     autograd through its plain version; K7 at the crash-repro tool's
+     shapes (2, 3 and 1 buffers); K1 under autograd at the training
+     step's shape (its analytic backward is plain PyTorch), in f32 and in
+     the step's bf16, y and gradients against the chunked WKV, with the
+     backward's time;
   4. reference: a small f32 decode of the flagship (standard joint, under
      the beam's three top-k routes) and of its HAT twin, the card against
      the CPU;
@@ -22,13 +23,25 @@ Phases, each fatal on failure (no phase is skipped or caught):
   6. the recognize_wav CLI at full width, 32 x 90 s windows of one WAV, for
      the HAT and the standard flagship, with the counters, the TXT and the
      CTM checked;
-  7. training reference: one f32 step of the flagship (loss, gradient
+  7. the crash-repro tool's five cases (tools/repro_tpu_worker_crash.py):
+     pinned_bisect (K7), v7_encoder and pallas_lf (K1), sort_topk (K5) and
+     pinned_outer_jit at 4 x 9000 frames (K1-K3), with the counters;
+  8. the short-form recognize CLI on the paper's model (the flagship plus
+     the bitransformer attention decoder) at full width: 64 utterances of
+     2-15 s, batch 16, beam 8, bf16, each of the four modes with the
+     counters; then the four modes in f32 on 2 utterances, the card's
+     text files against the CPU's, byte for byte;
+  9. training reference: one f32 step of the flagship and of the paper's
+     config cut to 2 encoder and 1 + 1 decoder blocks (loss, gradient
      norm, parameters after one Adam step), the card against the CPU;
-  8. training at full width: train_bench's main on the flagship, B16 x
+ 10. training at full width: train_bench's main on the flagship, B16 x
      1500 frames x 40 labels, mixed precision, with the counters checked;
-  9. the K6 path: the same step with the encoder's dropout at 0 and every
+ 11. the K6 path: the same step with the encoder's dropout at 0 and every
      feed-forward on impl "pallas", against the "xla" step, with K6's
      counter checked;
+ 12. the paper's training step: train_bench's main on
+     examples/gigaspeech/conf/rwkvbi_ds4k31nc_12le_trans_shortform.yaml
+     at the same shape, with the counters, and its profile;
 then one JSON line with every kernel's numbers and, last, the result line.
 
 Usage: python3 chip_smoke.py [--batch 32] [--kernels-only]
@@ -97,8 +110,8 @@ def phase_device() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     log(line)
-    # the CLI reads YAML configs only through PyYAML; this script's configs
-    # are JSON, so its path never needs it
+    # configs other than JSON are read through PyYAML: the paper's YAML
+    # (phases 8, 9 and 12) needs it
     log(f"PyYAML importable: {importlib.util.find_spec('yaml') is not None}")
     return line
 
@@ -430,15 +443,50 @@ def check_topk(g):
                 bound_ms=bms, bound_by=by, library_ms=lib_ms), ok_all
 
 
-def log_unported_bounds() -> None:
-    """The bound of the TPU kernel still to port, from its shapes."""
-    # K7 (tools/repro_tpu_worker_crash.py pinned_call) at the tool's
-    # defaults: x (4096, 512) @ 2 buffers of (512, 5120) bf16, bf16 out
-    d, r7, buffers, h7 = 512, 4096, 2, 5120
-    b7, by7 = bound_ms((r7 * d + buffers * d * h7 + r7 * h7) * 2,
-                       2 * r7 * d * h7 * buffers, PEAK_BF16_FLOPS)
-    log(f"bound, kernel to port: K7 pinned_call ({r7}x{d} @ "
-        f"{buffers}x{d}x{h7} bf16) {b7:.4f} ms ({by7})")
+def check_multi_product(g):
+    """K7 at the crash-repro tool's pinned_bisect shapes: x (4096, 512) bf16
+    against 2 buffers of (512, 5120) (the defaults, the row's numbers), 3
+    buffers and 1 buffer, each set totalling the default 10 MB."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.ops import multi_product as K
+    from paper_accurate_fast_cheap_tpu_torch.tools.repro_tpu_worker_crash \
+        import buffer_cols
+
+    R, D = 4096, 512
+    x = _randn((R, D), g).bfloat16()
+    ok_all, row = True, None
+    for nbuf in (2, 3, 1):
+        H = buffer_cols(10.0, nbuf, D)
+        ws = [_randn((D, H), g, 0.02).bfloat16() for _ in range(nbuf)]
+        yk, yp = K.multi_product(x, ws), K.multi_product_plain(x, ws)
+        # both sum exact bf16 products in f32 (in different orders) and
+        # round once: one bf16 ulp at the output's scale
+        scale = float(yp.float().abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+        err = float((yk.float() - yp.float()).abs().max())
+        ok = (err <= ulp and yk.dtype == torch.bfloat16
+              and tuple(yk.shape) == (R, H)
+              and bool(torch.isfinite(yk.float()).all()))
+        ok_all = ok_all and ok
+        ms = cuda_time_ms(lambda: K.multi_product(x, ws), 20)
+        plain_ms = cuda_time_ms(lambda: K.multi_product_plain(x, ws), 10)
+        stacked = torch.stack(ws)
+        # yardstick only: one cuBLAS GEMM over the stacked buffers
+        lib_ms = cuda_time_ms(
+            lambda: torch.einsum("rd,bdh->rh", x, stacked), 20)
+        bms, by = bound_ms((R * D + nbuf * D * H + R * H) * 2,
+                           2 * R * D * H * nbuf, PEAK_BF16_FLOPS)
+        log(f"K7 multi_product bf16 ({R}x{D} @ {nbuf}x{D}x{H}): "
+            f"max_abs_err {err:.3e} <= one bf16 ulp {ulp:.3e} (scale "
+            f"{scale:.3f}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library (einsum) {lib_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+        if row is None:
+            row = dict(name="multi_product", max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       library_ms=lib_ms)
+    return row, ok_all
 
 
 def check_ffn(g):
@@ -630,6 +678,9 @@ KERNELS = {
              "paper_accurate_fast_cheap_tpu/ops/topk_pallas.py:127"),
     "ffn": ("paper_accurate_fast_cheap_tpu_torch/csrc/ffn.cu",
             "paper_accurate_fast_cheap_tpu/ops/ffn_pallas.py:80"),
+    "multi_product": (
+        "paper_accurate_fast_cheap_tpu_torch/csrc/multi_product.cu",
+        "paper_accurate_fast_cheap_tpu/tools/repro_tpu_worker_crash.py:247"),
 }
 
 
@@ -690,14 +741,16 @@ def build_model(hat: bool = False):
 def counters():
     """Every kernel wrapper, by kernel name."""
     from paper_accurate_fast_cheap_tpu_torch.ops import (
-        ffn, fused_topk, joint_topk, lstm_step, topk, wkv6_cuda)
+        ffn, fused_topk, joint_topk, lstm_step, multi_product, topk,
+        wkv6_cuda)
 
     return {"wkv6_fwd": wkv6_cuda.wkv6_cuda,
             "joint_topk": joint_topk.joint_top_k_vocab,
             "lstm_step": lstm_step.lstm_predictor_step,
             "fused_topk": fused_topk.fused_top_k_vocab,
             "topk": topk.top_k_vocab,
-            "ffn": ffn.fused_ffn}
+            "ffn": ffn.fused_ffn,
+            "multi_product": multi_product.multi_product}
 
 
 def zero_counts() -> None:
@@ -875,8 +928,8 @@ def phase_main(model, rng, batch):
     wall = time.perf_counter() - t0
     counts = read_counts()
     frames = enc.shape[1]
-    want = {"wkv6_fwd": 24, "joint_topk": frames, "lstm_step": frames + 1,
-            "fused_topk": 0, "topk": 0, "ffn": 0}
+    want = dict.fromkeys(counts, 0)
+    want.update(wkv6_fwd=24, joint_topk=frames, lstm_step=frames + 1)
     audio_s = batch * WINDOW_S
     ntok = float(np.mean([len(r.tokens) for r in res]))
     hyps = carry["hyps"]
@@ -1026,9 +1079,9 @@ def _cli_run(recognize_wav, paths, name, route, card, align_s):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    want = {"wkv6_fwd": 24, "joint_topk": 0, "lstm_step": CLI_FRAMES + 1,
-            "fused_topk": 0, "topk": 0, "ffn": 0}
-    want[route] = CLI_FRAMES
+    want = dict.fromkeys(counts, 0)
+    want.update({"wkv6_fwd": 24, "lstm_step": CLI_FRAMES + 1,
+                 route: CLI_FRAMES})
     with open(os.path.join(out, "episode.txt")) as f:
         words = f.read().split()
     ctm_ok, n_ctm = check_ctm(os.path.join(out, "episode.ctm"),
@@ -1080,11 +1133,11 @@ def _report(path: str) -> dict:
     return {ln.split()[0]: ln.split(None, 1)[1] for ln in lines}
 
 
-def phase_train_reference() -> bool:
-    """One f32 training step of the flagship from the same weights, the card
-    against the CPU: 2 utterances of 300 feature frames (and 260), 8 labels
-    (and 5).  Dropout off (the two devices draw different bits) and the
-    RWKV's bf16 cast off (it rounds differently on the two)."""
+def phase_train_reference(config: dict, label: str) -> bool:
+    """One f32 training step from the same weights, the card against the
+    CPU: 2 utterances of 300 feature frames (and 260), 8 labels (and 5).
+    Dropout off (the two devices draw different bits) and the RWKV's bf16
+    cast off (it rounds differently on the two)."""
     import copy
 
     import torch
@@ -1099,7 +1152,7 @@ def phase_train_reference() -> bool:
     batch = (torch.randn(B, T, 80, generator=g), torch.tensor([T, T - 40]),
              torch.randint(1, VOCAB, (B, U), generator=g),
              torch.tensor([U, U - 3]))
-    model, _ = factory.init_model(CONFIG, VOCAB, 80, device="cpu",
+    model, _ = factory.init_model(config, VOCAB, 80, device="cpu",
                                   generator=torch.Generator().manual_seed(3))
     for mod in model.modules():
         if isinstance(mod, RWKVAttention):
@@ -1132,7 +1185,7 @@ def phase_train_reference() -> bool:
     u_err = float((dc - dp).norm() / dp.norm())
     ok = (l_err <= 1e-3 and g_err <= 1e-3 and u_err <= 1e-2
           and np.isfinite(lc))
-    log(f"training reference (flagship, f32, {B} x {T} frames, {U} labels, "
+    log(f"training reference ({label}, f32, {B} x {T} frames, {U} labels, "
         f"card vs CPU): loss {lc:.4f} vs {lp:.4f} (rel {l_err:.2e} <= 1e-3), "
         f"grad norm {gc:.4f} vs {gp:.4f} (rel {g_err:.2e} <= 1e-3), "
         f"Adam update (lr {lr:.0e}) rel L2 {u_err:.2e} <= 1e-2 "
@@ -1204,6 +1257,8 @@ def profile_train_step(bench) -> None:
     hooks = (ranged(m.encoder, "fwd encoder") + ranged(m.predictor,
                                                        "fwd predictor")
              + ranged(m.ctc, "fwd ctc head"))
+    if m.decoder is not None:
+        hooks += ranged(m.decoder, "fwd attention decoder")
     fns = {n: getattr(rnnt, n) for n in ("gather_rnnt_logprobs_chunked",
                                          "rnnt_forward")}
     for n, fn in fns.items():
@@ -1338,6 +1393,308 @@ def phase_train_k6(work: str):
     return ok, counts
 
 
+# The paper's own configuration: the flagship transducer plus the
+# bitransformer attention decoder (3 + 3 blocks), its optimizer, schedule and
+# clip, read from the repo's YAML.
+PAPER_YAML = "examples/gigaspeech/conf/rwkvbi_ds4k31nc_12le_trans_shortform.yaml"
+
+
+# the paper's configuration cut to 2 encoder blocks and 1 + 1 decoder
+# blocks at its full widths (the decoder-bearing training reference)
+def _small_paper_config() -> dict:
+    conf = paper_config()
+    return dict(conf, encoder_conf=dict(conf["encoder_conf"], num_blocks=2),
+                decoder_conf=dict(conf["decoder_conf"], num_blocks=1,
+                                  r_num_blocks=1))
+
+
+def paper_config() -> dict:
+    from paper_accurate_fast_cheap_tpu_torch.utils.config import load_config
+
+    return load_config(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), PAPER_YAML))
+
+
+def phase_tool():
+    """The crash-repro tool's five cases on the card through the port
+    (tools/repro_tpu_worker_crash.py), each with the counters set to 0 just
+    before and read just after: pinned_bisect at its defaults with the
+    product chain (K7), v7_encoder (K1 x 24), pallas_lf (K1), sort_topk (K5
+    x 3000) and pinned_outer_jit at 4 x 9000 frames (the main path runs the
+    full batch).  Returns (ok, K7's launches)."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.tools import (
+        repro_tpu_worker_crash as tool)
+
+    # the encoder frames of 9000 feature frames after the two valid
+    # stride-2 convolutions
+    frames = ((9000 - 1) // 2 - 1) // 2
+    cases = (
+        ("pinned_bisect", lambda: tool.case_pinned_bisect(device="cuda"),
+         {"multi_product": 1}),
+        ("v7_encoder", lambda: tool.case_v7_encoder(device="cuda"),
+         {"wkv6_fwd": 24}),
+        ("pallas_lf", lambda: tool.case_pallas_lf(device="cuda"),
+         {"wkv6_fwd": 1}),
+        ("sort_topk", lambda: tool.case_sort_topk(device="cuda"),
+         {"topk": 3000}),
+        ("pinned_outer_jit",
+         lambda: tool.case_pinned_outer_jit(B=4, T=9000, device="cuda"),
+         {"wkv6_fwd": 24, "joint_topk": frames, "lstm_step": frames + 1}),
+    )
+    ok, k7 = True, 0
+    for name, run, nonzero in cases:
+        zero_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = {n: nonzero.get(n, 0) for n in counts}
+        if name == "pinned_bisect":
+            k7 = counts["multi_product"]
+        if name == "pinned_outer_jit":
+            expected = (all(np.isfinite(r.score) for r in out)
+                        and len(out) == 4)
+        elif name == "sort_topk":
+            expected = (bool(np.isfinite(out[0]))
+                        and out[1] == (3000, 64, 8, 8))
+        elif name == "v7_encoder":
+            # the program overflows by construction: 24 residual WKV layers
+            # without a norm grow x cubically, NaN from the sixth layer on,
+            # as the JAX tool's program does (the JAX package's chunked WKV
+            # on the CPU); so the 24-layer output is NaN, and 2 layers,
+            # still finite, agree with the plain version on the CPU
+            expected = bool(np.isnan(out)) and _v7_two_layers_agree(tool)
+        else:
+            expected = bool(np.isfinite(out))
+        good = counts == want and expected
+        ok = ok and good
+        log(f"tool {name}: {wall:.2f} s, launch counters "
+            f"{json.dumps(counts)}, expected {json.dumps(want)}, output "
+            f"{'NaN as the program gives' if name == 'v7_encoder' else 'finite'}"
+            f" {expected} {'ok' if good else 'FAIL'}")
+        torch.cuda.empty_cache()
+    return ok, k7
+
+
+def _v7_two_layers_agree(tool) -> bool:
+    """The v7_encoder program cut to 2 layers (still finite), K1 on the
+    card against the plain version on the CPU: x within 2e-2 of its
+    largest entry (a bf16 residual stream: a flipped rounding moves an
+    entry by 2^-8 of its size and the next layer amplifies it; on the CPU
+    a change of the products' rounding order moved x by 3.6e-3)."""
+    import torch
+
+    card = tool.v7_stack(layers=2, device="cuda").float().cpu()
+    cpu = tool.v7_stack(layers=2, device="cpu").float()
+    scale = float(cpu.abs().max())
+    err = float((card - cpu).abs().max())
+    ok = bool(torch.isfinite(card).all()) and err <= 2e-2 * scale
+    log(f"tool v7_encoder, 2 layers: card vs CPU max_abs_err {err:.3e} <= "
+        f"2e-2 x {scale:.3f} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+# The short-form CLI's data: seeded GigaSpeech-like utterances of 2-15 s.
+SF_UTTS, SF_BATCH = 64, 16
+SF_MODES = ("ctc_greedy_search", "ctc_prefix_beam_search",
+            "attention_rescoring", "rnnt_beam_search")
+
+
+def _write_wav(path: str, pcm: np.ndarray) -> None:
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+
+
+def write_sf_inputs(d: str, rng, model, config: dict) -> dict:
+    """64 seeded 16 kHz WAVs of 2-15 s with random transcripts as a raw
+    list, 2 short ones as a second list, a whitespace symbol table of VOCAB
+    pieces (<sos/eos> at the config's id 2), global CMVN stats of the first
+    WAVs, the model's f32 state_dict and two JSON configs (the paper's,
+    bf16 RWKV cast included, and its twin without the cast for the f32
+    card-vs-CPU check).  Returns the paths and the audio seconds."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
+
+    units = os.path.join(d, "units.txt")
+    with open(units, "w") as f:
+        f.write("<blank> 0\n<unk> 1\n<sos/eos> 2\n")
+        for i in range(3, VOCAB):
+            f.write(f"{'▁w' if i % 3 == 0 else 'p'}{i} {i}\n")
+    words = [f"{'▁w' if i % 3 == 0 else 'p'}{i}" for i in range(3, VOCAB)]
+    lists, audio_s, pcms = {}, {}, []
+    for name, n, lo, hi in (("sf", SF_UTTS, 2.0, 15.0), ("ref", 2, 2.0, 3.0)):
+        path = os.path.join(d, f"{name}.list")
+        audio_s[name] = 0.0
+        with open(path, "w") as f:
+            for i in range(n):
+                samples = int(rng.uniform(lo, hi) * 16000)
+                pcm = np.clip(rng.randn(samples) * 0.1 * 32768, -32768,
+                              32767).astype(np.int16)
+                wav = os.path.join(d, f"{name}_{i:03d}.wav")
+                _write_wav(wav, pcm)
+                pcms.append(pcm)
+                txt = " ".join(rng.choice(words, rng.randint(3, 13)))
+                f.write(json.dumps({"key": f"{name}_{i:03d}", "wav": wav,
+                                    "txt": txt}) + "\n")
+                audio_s[name] += samples / 16000.0
+        lists[name] = path
+    head = torch.from_numpy(np.concatenate(pcms[:8]).astype(np.float32)
+                            / 32768.0)[None]
+    feats, _ = pipeline.make_feature_fn({}, None)(
+        head, torch.tensor([head.shape[1]]))
+    feats = feats[0].double()
+    cmvn = os.path.join(d, "sf_cmvn.json")
+    with open(cmvn, "w") as f:
+        json.dump({"mean_stat": feats.sum(0).tolist(),
+                   "var_stat": (feats ** 2).sum(0).tolist(),
+                   "frame_num": feats.shape[0]}, f)
+    ckpt = os.path.join(d, "paper.pt")
+    torch.save(model.state_dict(), ckpt)
+    paths = dict(lists, ckpt=ckpt, audio_s=audio_s)
+    conf = dict(config, tokenizer="whitespace",
+                tokenizer_conf=dict(config["tokenizer_conf"],
+                                    symbol_table_path=units),
+                cmvn_conf={"cmvn_file": cmvn, "is_json_cmvn": True})
+    for name, cast in (("paper", True), ("paper_f32", False)):
+        paths[name] = os.path.join(d, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(dict(conf, encoder_conf=dict(
+                config["encoder_conf"], rwkv_do_bfloat16=cast)), f)
+    return paths
+
+
+def _sf_argv(paths, config, data, out, modes, device, precision):
+    return (["--config", paths[config], "--checkpoint", paths["ckpt"],
+             "--data_type", "raw", "--test_data", paths[data],
+             "--result_dir", out, "--batch_size", str(SF_BATCH),
+             "--beam_size", str(BEAM), "--precision", precision,
+             "--device", device, "--modes"] + list(modes))
+
+
+def phase_recognize(work: str, rng):
+    """The short-form recognize CLI at full width on the paper's model
+    (random weights from a seed, blank bias +2.5 on the CTC and transducer
+    heads): 64 utterances of 2-15 s, batch 16, beam 8, bf16, one run per
+    mode with the counters set to 0 just before and read just after; then
+    the four modes in f32 on 2 short utterances, the card against the CPU:
+    the text files must be identical.  Returns (ok, counts of the
+    rnnt_beam_search run)."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import recognize
+    from paper_accurate_fast_cheap_tpu_torch.models import factory
+
+    config = paper_config()
+    model, _ = factory.init_model(
+        config, VOCAB, 80, device="cpu",
+        generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        model.joint.ffn_out.bias[0] += 2.5
+        model.ctc.ctc_lo.bias[0] += 2.5
+    n = sum(p.numel() for p in model.parameters())
+    log(f"model: the paper's transducer + bitransformer decoder, {n / 1e6:.1f}"
+        " M parameters")
+    paths = write_sf_inputs(work, rng, model, config)
+    del model
+    audio = paths["audio_s"]["sf"]
+    batches = -(-SF_UTTS // SF_BATCH)
+    ok, rnnt_counts = True, None
+    for mode in SF_MODES:
+        out = os.path.join(work, f"sf_{mode}")
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = recognize.main(_sf_argv(paths, "paper", "sf", out, [mode],
+                                     "cuda", "bf16"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        with open(os.path.join(out, mode, "text"), encoding="utf-8") as f:
+            lines = f.read().splitlines()
+        keys = sorted(ln.split(" ", 1)[0] for ln in lines)
+        ntok = sum(len(ln.split()) - 1 for ln in lines)
+        want = {n: 0 for n in counts}
+        want["wkv6_fwd"] = 24 * batches
+        counts_ok = all(counts[k] == want[k] for k in counts
+                        if k not in ("joint_topk", "lstm_step"))
+        if mode == "rnnt_beam_search":
+            # one K2 launch per frame of each batch, K3 once more per batch
+            rnnt_counts = counts
+            counts_ok = (counts_ok and counts["joint_topk"] > 0
+                         and counts["lstm_step"]
+                         == counts["joint_topk"] + batches)
+        else:
+            counts_ok = (counts_ok and counts["joint_topk"] == 0
+                         == counts["lstm_step"])
+        good = (rc == 0 and counts_ok and ntok > 0 and keys == [
+            f"sf_{i:03d}" for i in range(SF_UTTS)])
+        ok = ok and good
+        log(f"recognize {mode}: {SF_UTTS} utterances, {audio:.1f} s audio, "
+            f"batch {SF_BATCH}, beam {BEAM}, bf16: {wall:.2f} s (model load "
+            f"included), 1/RTF {audio / wall:.1f}, {ntok} tokens, launch "
+            f"counters {json.dumps(counts)} {'ok' if good else 'FAIL'}")
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(work, f"ref_{dev}")
+        rc = recognize.main(_sf_argv(paths, "paper_f32", "ref", out,
+                                     SF_MODES, dev, "fp32"))
+        outs[dev] = {}
+        for mode in SF_MODES:
+            with open(os.path.join(out, mode, "text"), "rb") as f:
+                outs[dev][mode] = f.read()
+        ok = ok and rc == 0
+    for mode in SF_MODES:
+        same = outs["cuda"][mode] == outs["cpu"][mode]
+        ok = ok and same and len(outs["cuda"][mode].splitlines()) == 2
+        log(f"recognize {mode} (2 utterances, f32, card vs CPU): text files "
+            f"identical {same}: {outs['cuda'][mode][:160]!r}")
+    return ok, rnnt_counts
+
+
+def phase_train_paper(work: str):
+    """train_bench's main on the paper's YAML (the flagship plus the
+    bitransformer decoder; Adam, steadylr and clip 0.1 from the config) at
+    B16 x 1500 frames x 40 labels, mixed precision, the counters set to 0
+    just before and read just after.  Returns (ok, counts)."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import train_bench
+
+    out = os.path.join(work, "train_paper.bench")
+    argv = _train_argv(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), PAPER_YAML), out)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = train_bench.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    forwards = TRAIN_WARMUP + TRAIN_ITERS
+    want = {n: 0 for n in counts}
+    want["wkv6_fwd"] = 24 * forwards
+    log(f"training, the paper's config (train_bench.main, {PAPER_YAML}, "
+        f"B{TRAIN_BATCH} x {TRAIN_FRAMES} frames x {TRAIN_LABELS} labels, "
+        f"mixed precision): {wall:.2f} s with the model build; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rep = _report(out)
+    vals = [float(rep[k]) for k in ("final_loss", "loss_att", "th_accuracy")]
+    ok = rc == 0 and counts == want and all(np.isfinite(vals))
+    log(f"paper training counters {json.dumps(counts)}, expected "
+        f"{json.dumps(want)} (24 per forward x {forwards}), loss, loss_att "
+        f"and th_accuracy finite {all(np.isfinite(vals))} "
+        f"{'ok' if ok else 'FAIL'}")
+    profile_train_step(train_bench.prepare(train_bench.get_args(argv)))
+    return ok, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=32)
@@ -1354,13 +1711,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     rows, ok = [], True
     for check in (check_wkv, check_joint_topk, check_lstm, check_fused_topk,
-                  check_topk, check_ffn):
+                  check_topk, check_ffn, check_multi_product):
         row, good = check(g)
         torch.cuda.synchronize()
         rows.append(row)
@@ -1368,7 +1726,6 @@ def main() -> int:
     failed = [] if ok else ["kernels vs plain"]
     if not check_wkv_backward(g):
         failed.append("K1 backward vs autograd")
-    log_unported_bounds()
     if args.kernels_only:
         return 1 if failed else 0
 
@@ -1394,14 +1751,27 @@ def main() -> int:
         cli_ok, hat_counts = phase_cli(paths, card)
         if not cli_ok:
             failed.append("recognize_wav CLI")
-        if not phase_train_reference():
+        tool_ok, k7_launches = phase_tool()
+        if not tool_ok:
+            failed.append("crash-repro tool cases")
+        sf_ok, sf_counts = phase_recognize(work, rng)
+        if not sf_ok:
+            failed.append("short-form recognize CLI")
+        if not phase_train_reference(CONFIG, "flagship"):
             failed.append("training reference")
+        if not phase_train_reference(_small_paper_config(),
+                                     "paper config, 2 encoder and 1 + 1 "
+                                     "decoder blocks"):
+            failed.append("training reference, attention decoder")
         train_ok, train_counts = phase_train(work)
         if not train_ok:
             failed.append("training")
         k6_ok, k6_counts = phase_train_k6(work)
         if not k6_ok:
             failed.append("K6 path")
+        paper_ok, paper_counts = phase_train_paper(work)
+        if not paper_ok:
+            failed.append("training, the paper's config")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failed:
@@ -1418,8 +1788,15 @@ def main() -> int:
                        f"train_bench K6 path ({TRAIN_WARMUP + TRAIN_ITERS} "
                        f"steps, B{TRAIN_BATCH} x {TRAIN_FRAMES} frames, "
                        "mixed precision, encoder dropout 0, impl pallas)")
-    log(f"K1 launches in training: {train_counts['wkv6_fwd']} "
-        f"({TRAIN_WARMUP + TRAIN_ITERS} steps x 24 per forward)")
+    launches["multi_product"] = (
+        k7_launches, "crash-repro tool, pinned_bisect (defaults: 4096 x 512 "
+        "@ 2 x 512 x 5120 bf16, with the product chain)")
+    log(f"K1 launches in training: {train_counts['wkv6_fwd']} (flagship), "
+        f"{paper_counts['wkv6_fwd']} (the paper's config) "
+        f"({TRAIN_WARMUP + TRAIN_ITERS} steps x 24 per forward); short-form "
+        f"recognize, rnnt_beam_search: {json.dumps(sf_counts)}")
+    log(f"chip_smoke: every phase ok in {time.perf_counter() - t_start:.1f} "
+        "s")
     for row in rows:
         src, rep = KERNELS[row["name"]]
         n, path = launches[row["name"]]

@@ -2,7 +2,9 @@
 
 The port names its submodules after the flax tree (``encoder.layer_{i}``,
 ``encoder.RWKVAttention_{i}.tmix``, ``predictor.lstm_{i}.ih``,
-``joint.ffn_out``, ...), so the bridge only changes layouts:
+``joint.ffn_out``, ``decoder.left_decoder.layer_{i}.self_attn.linear_q``,
+...) for the ``Transducer`` and ``ASRModel`` trees, so the bridge only
+changes layouts:
 
 * Dense ``kernel`` (in, out)          -> Linear ``weight`` (out, in)
 * Conv ``kernel`` (kh, kw, in, out)   -> Conv2d ``weight`` (out, in, kh, kw)
@@ -10,7 +12,8 @@ The port names its submodules after the flax tree (``encoder.layer_{i}``,
 * LayerNorm ``scale`` and Embed ``embedding`` -> ``weight``
 * the LSTM recurrent matrix ``hh`` (H, 4H) -> (4H, H)
 
-Every other array (biases, RWKV mixing parameters) keeps its layout.
+Biases and the RWKV mixing parameters (``time_*``) keep their layout.  A
+leaf of any other name (a module the port does not have) raises KeyError.
 Loading WeNet checkpoints waits for the slice that ports
 ``tools/convert_checkpoint.py``.
 """
@@ -31,6 +34,10 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield name, np.asarray(v)
 
 
+# the leaves of the ported modules besides the RWKV's ``time_*``
+_LEAVES = ("bias", "kernel", "scale", "embedding", "hh")
+
+
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """``params``: the flax tree as nested dicts of numpy arrays (with or
     without the outer ``{"params": ...}``).  Returns the port's
@@ -41,6 +48,9 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     for name, arr in _flatten(params):
         arr = arr.astype(np.float32)
         parent, _, leaf = name.rpartition(".")
+        if not (leaf in _LEAVES or leaf.startswith("time_")):
+            raise KeyError(f"state_dict_from_jax: flax parameter {name!r} "
+                           "has no counterpart in the port")
         if leaf == "kernel":
             perm = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}[arr.ndim]
             name, arr = f"{parent}.weight", arr.transpose(perm)

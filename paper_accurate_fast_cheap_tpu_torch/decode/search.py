@@ -1,6 +1,8 @@
-"""CTC decoding on the host (port of the JAX ``decode/search.py``:
-``DecodeResult``, ``remove_duplicates_and_blank``, ``ctc_greedy_search`` and
-``ctc_prefix_beam_search`` without context biasing).
+"""CTC decoding on the host and attention rescoring (port of the JAX
+``decode/search.py``: ``DecodeResult``, ``remove_duplicates_and_blank``,
+``ctc_greedy_search``, ``ctc_prefix_beam_search`` without context biasing,
+``attention_rescoring_scores`` and ``attention_rescoring``; the attention
+beam search and the GNMT scorer wait for ROADMAP Queue 1 item 9).
 
 The searches run in numpy over the (B, T, V) CTC log-posteriors, which are
 brought to the host once per batch as float32 (a bf16 tensor widens
@@ -159,3 +161,69 @@ def ctc_prefix_beam_search(ctc_probs, lengths, beam_size: int = 10,
             nbest=nbest, nbest_scores=scores, nbest_times=times,
         ))
     return results
+
+
+def attention_rescoring_scores(decoder_apply, enc_out: torch.Tensor,
+                               enc_len: torch.Tensor, nbest: List[List[int]],
+                               sos: int, eos: int,
+                               reverse_weight: float = 0.0) -> np.ndarray:
+    """Score one utterance's n-best hypotheses with the attention decoder.
+
+    ``decoder_apply(enc, enc_lens, ys_in, ys_lens, r_ys_in, reverse_weight)
+    -> (l_logits, r_logits)``; ``enc_out`` (1, T, D) is repeated per
+    hypothesis and the hypotheses are padded with <eos>.  Returns (n,)
+    float64: each hypothesis' total log-prob, <eos> included.
+    """
+    n = len(nbest)
+    maxu = max((len(h) for h in nbest), default=0) + 1
+    ys_in = np.full((n, maxu), eos, np.int64)
+    r_ys_in = np.full((n, maxu), eos, np.int64)
+    ys_in[:, 0] = sos
+    r_ys_in[:, 0] = sos
+    ys_lens = np.zeros((n,), np.int64)
+    for i, h in enumerate(nbest):
+        ys_in[i, 1: 1 + len(h)] = h
+        r_ys_in[i, 1: 1 + len(h)] = h[::-1]
+        ys_lens[i] = len(h) + 1
+    dev = enc_out.device
+    l_logits, r_logits = decoder_apply(
+        enc_out.repeat_interleave(n, dim=0),
+        enc_len.repeat_interleave(n, dim=0), torch.from_numpy(ys_in).to(dev),
+        torch.from_numpy(ys_lens).to(dev), torch.from_numpy(r_ys_in).to(dev),
+        reverse_weight)
+    l_logp = _host(torch.log_softmax(l_logits, dim=-1))
+    r_logp = _host(torch.log_softmax(r_logits, dim=-1))
+    scores = np.zeros((n,), np.float64)
+    for i, h in enumerate(nbest):
+        s = sum(l_logp[i, j, tok] for j, tok in enumerate(h))
+        s += l_logp[i, len(h), eos]
+        if reverse_weight > 0.0:
+            rh = h[::-1]
+            rs = sum(r_logp[i, j, tok] for j, tok in enumerate(rh))
+            rs += r_logp[i, len(h), eos]
+            s = (1.0 - reverse_weight) * s + reverse_weight * rs
+        scores[i] = s
+    return scores
+
+
+def attention_rescoring(decoder_apply, enc_out: torch.Tensor,
+                        enc_lens: torch.Tensor,
+                        ctc_results: List[DecodeResult], sos: int, eos: int,
+                        ctc_weight: float = 0.3,
+                        reverse_weight: float = 0.0) -> List[DecodeResult]:
+    """Rescore each utterance's CTC prefix-beam n-best: the best of
+    ``att + ctc_weight * nbest_scores``; an empty n-best gives no tokens."""
+    out = []
+    for b, res in enumerate(ctc_results):
+        if not res.nbest:
+            out.append(DecodeResult(tokens=[]))
+            continue
+        att = attention_rescoring_scores(
+            decoder_apply, enc_out[b: b + 1], enc_lens[b: b + 1],
+            res.nbest, sos, eos, reverse_weight)
+        total = att + ctc_weight * np.asarray(res.nbest_scores)
+        best = int(np.argmax(total))
+        out.append(DecodeResult(
+            tokens=res.nbest[best], score=float(total[best]),
+            times=res.nbest_times[best] if res.nbest_times else []))
+    return out

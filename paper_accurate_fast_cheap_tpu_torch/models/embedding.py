@@ -1,4 +1,5 @@
-"""Relative positional encoding (port of the JAX ``models/embedding.py``)."""
+"""Positional encodings (port of ``PositionalEncoding`` and
+``RelPositionalEncoding`` of the JAX ``models/embedding.py``)."""
 from __future__ import annotations
 
 import math
@@ -36,3 +37,21 @@ class RelPositionalEncoding(nn.Module):
                                  x.device)[None]
         scale = torch.sqrt(torch.tensor(float(self.d_model), dtype=x.dtype))
         return self.dropout(x * scale.to(x.device)), self.dropout(pos)
+
+
+class PositionalEncoding(nn.Module):
+    """Absolute sinusoidal encoding: returns (x * sqrt(d) + PE, PE), the
+    scale in x's dtype and the table in f32 (so a bf16 x comes out f32, as
+    in the JAX module); dropout on both outputs."""
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.1):
+        super().__init__()
+        self.d_model = d_model
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor, offset: int = 0):
+        pos = sinusoid_positions(offset, x.shape[1], self.d_model,
+                                 x.device)[None]
+        scale = torch.sqrt(torch.tensor(float(self.d_model), dtype=x.dtype))
+        return (self.dropout(x * scale.to(x.device) + pos),
+                self.dropout(pos))

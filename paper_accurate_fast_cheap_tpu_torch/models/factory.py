@@ -1,6 +1,8 @@
 """Model factory from WeNet-style config dicts (port of the JAX
-``models/factory.py`` for ``model: transducer``, ``encoder: conformer``,
-``predictor: rnn``; other families wait for later slices)."""
+``models/factory.py`` for ``model: transducer`` with ``predictor: rnn`` and
+``model: asr_model``, both on ``encoder: conformer``, with an optional
+``decoder: transformer`` or ``bitransformer``; other families wait for
+later slices)."""
 from __future__ import annotations
 
 import logging
@@ -9,6 +11,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from paper_accurate_fast_cheap_tpu_torch import resolve_device
+from paper_accurate_fast_cheap_tpu_torch.models.asr_model import ASRModel
 from paper_accurate_fast_cheap_tpu_torch.models.layers import init_default
 from paper_accurate_fast_cheap_tpu_torch.models.transducer import Transducer
 
@@ -53,36 +56,65 @@ def init_model(config: Dict[str, Any], vocab_size: int, input_dim: int = 80,
 
     Weights are drawn on the CPU from ``generator`` (seed 0 if None) with
     flax's default initializers, then moved to ``device`` (``cuda`` unless
-    the caller asks for the CPU).  Returns (model, "transducer") in
-    ``.eval()`` mode; call ``.train()`` for dropout.
+    the caller asks for the CPU).  Returns (model, "transducer" or
+    "asr_model") in ``.eval()`` mode; call ``.train()`` for dropout.
     """
     dev = resolve_device(device)
     model_type = config.get("model", "asr_model")
-    if (model_type != "transducer"
-            or config.get("encoder", "conformer") != "conformer"
-            or config.get("predictor", "rnn") != "rnn"):
+    encoder_type = config.get("encoder", "conformer")
+    if model_type not in ("transducer", "asr_model") or (
+            model_type == "transducer"
+            and config.get("predictor", "rnn") != "rnn"):
         raise NotImplementedError(
-            "the port builds model: transducer with encoder: conformer and "
-            "predictor: rnn; other families wait for later slices")
+            "the port builds model: transducer (predictor: rnn) and model: "
+            "asr_model; other families wait for later slices")
+    if encoder_type != "conformer":
+        raise NotImplementedError(
+            f"encoder {encoder_type!r}: the port builds the conformer "
+            "encoder only; other families wait for ROADMAP Queue 1, item 12")
     enc_conf = encoder_conf_from_yaml(config.get("encoder_conf", {}),
                                       input_dim)
-    joint_conf = dict(config.get("joint_conf", {}))
-    joint_conf.pop("enc_output_size", None)
-    joint_conf.pop("pred_output_size", None)
-    pred_conf = dict(config.get("predictor_conf", {}))
-    # keys the reference's predictor takes but this one fixes (lstm, bias)
-    for k in ("rnn_type", "bias"):
-        pred_conf.pop(k, None)
     model_conf = config.get("model_conf", {})
-    model = Transducer(
-        vocab_size=vocab_size, encoder_conf=enc_conf,
-        predictor_conf=pred_conf, joint_conf=joint_conf,
-        blank_id=config.get("ctc_conf", {}).get("ctc_blank_id", 0),
-        transducer_weight=model_conf.get("transducer_weight", 0.3),
-        ctc_weight=model_conf.get("ctc_weight", 0.2),
-        attention_weight=model_conf.get("attention_weight", 0.5),
-        has_decoder=config.get("decoder") is not None)
+    special = config.get("tokenizer_conf", {}).get("special_tokens", {})
+    sos = special.get("<sos>", vocab_size - 1)
+    eos = special.get("<eos>", vocab_size - 1)
+    dec_conf = None
+    if config.get("decoder") is not None:
+        dec_conf = dict(config.get("decoder_conf", {}))
+        if config.get("decoder") == "transformer":
+            dec_conf["r_num_blocks"] = 0
+    loss_kw = dict(
+        decoder_conf=dec_conf,
+        reverse_weight=model_conf.get("reverse_weight", 0.0),
+        lsm_weight=model_conf.get("lsm_weight", 0.1),
+        length_normalized_loss=model_conf.get("length_normalized_loss",
+                                              False),
+        sos=sos, eos=eos)
+    if model_type == "transducer":
+        joint_conf = dict(config.get("joint_conf", {}))
+        joint_conf.pop("enc_output_size", None)
+        joint_conf.pop("pred_output_size", None)
+        pred_conf = dict(config.get("predictor_conf", {}))
+        # keys the reference's predictor takes but this one fixes (lstm,
+        # bias)
+        for k in ("rnn_type", "bias"):
+            pred_conf.pop(k, None)
+        model = Transducer(
+            vocab_size=vocab_size, encoder_conf=enc_conf,
+            predictor_conf=pred_conf, joint_conf=joint_conf,
+            blank_id=config.get("ctc_conf", {}).get("ctc_blank_id", 0),
+            transducer_weight=model_conf.get("transducer_weight", 0.3),
+            ctc_weight=model_conf.get("ctc_weight", 0.2),
+            attention_weight=model_conf.get("attention_weight", 0.5),
+            **loss_kw)
+    else:
+        model = ASRModel(
+            vocab_size=vocab_size, encoder_conf=enc_conf,
+            ctc_weight=model_conf.get("ctc_weight", 0.3),
+            use_focal_ctc=config.get("ctc_conf", {}).get("use_focal_loss",
+                                                         False),
+            **loss_kw)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_default(model, generator)
-    return model.to(dev).eval(), "transducer"
+    return model.to(dev).eval(), model_type

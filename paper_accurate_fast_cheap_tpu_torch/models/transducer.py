@@ -4,8 +4,11 @@ loss and the decode surfaces.
 ``forward`` is the combined loss ``transducer_weight * rnnt + ctc_weight *
 ctc + attention_weight * att`` of the JAX ``loss_from_encoder``, with the
 RNN-T lattice's joint computed in T-chunks of ``RNNT_T_CHUNK`` frames
-(``ops/rnnt.py``).  The attention decoder is not ported, so ``loss_att`` is
-0.
+(``ops/rnnt.py``) and the attention branch on the (bi)transformer decoder
+(``models/decoder.py``).  As the flax model creates the decoder's
+parameters only when its loss calls it, the decoder is built only for a
+``decoder_conf`` with ``attention_weight > 0`` (its right half only for
+``reverse_weight > 0``).
 """
 from __future__ import annotations
 
@@ -18,10 +21,13 @@ from paper_accurate_fast_cheap_tpu_torch.models.conformer import (
     ConformerEncoder)
 from paper_accurate_fast_cheap_tpu_torch.models.ctc_head import (
     CTCHead, ctc_loss)
+from paper_accurate_fast_cheap_tpu_torch.models.decoder import (
+    BiTransformerDecoder, attention_loss)
 from paper_accurate_fast_cheap_tpu_torch.models.joint import TransducerJoint
 from paper_accurate_fast_cheap_tpu_torch.models.predictor import RNNPredictor
 from paper_accurate_fast_cheap_tpu_torch.ops import rnnt
-from paper_accurate_fast_cheap_tpu_torch.ops.common import add_blank
+from paper_accurate_fast_cheap_tpu_torch.ops.common import (
+    IGNORE_ID, add_blank)
 
 # encoder frames per chunk of the joint in the RNN-T loss (the JAX
 # Transducer's rnnt_t_chunk)
@@ -33,7 +39,12 @@ class Transducer(nn.Module):
                  predictor_conf: Optional[dict] = None,
                  joint_conf: Optional[dict] = None, blank_id: int = 0,
                  transducer_weight: float = 0.3, ctc_weight: float = 0.2,
-                 attention_weight: float = 0.5, has_decoder: bool = False):
+                 attention_weight: float = 0.5,
+                 decoder_conf: Optional[dict] = None,
+                 reverse_weight: float = 0.3, lsm_weight: float = 0.1,
+                 length_normalized_loss: bool = False,
+                 sos: Optional[int] = None, eos: Optional[int] = None,
+                 ignore_id: int = IGNORE_ID):
         super().__init__()
         enc_conf = dict(encoder_conf)
         pred_conf = dict(predictor_conf or {})
@@ -47,13 +58,21 @@ class Transducer(nn.Module):
         self.transducer_weight = transducer_weight
         self.ctc_weight = ctc_weight
         self.attention_weight = attention_weight
-        # the attention decoder's parameters are not built: decode ignores
-        # it, and its training loss raises (forward)
-        self.has_decoder = has_decoder
+        self.reverse_weight = reverse_weight
+        self.lsm_weight = lsm_weight
+        self.length_normalized_loss = length_normalized_loss
+        self.sos = vocab_size - 1 if sos is None else sos
+        self.eos = vocab_size - 1 if eos is None else eos
+        self.ignore_id = ignore_id
         self.encoder = ConformerEncoder(**enc_conf)
         self.predictor = RNNPredictor(vocab_size=vocab_size, **pred_conf)
         self.joint = TransducerJoint(vocab_size=vocab_size, **joint_conf)
         self.ctc = CTCHead(enc_dim, vocab_size)
+        self.decoder = None
+        if decoder_conf is not None and attention_weight > 0.0:
+            self.decoder = BiTransformerDecoder(
+                vocab_size, enc_dim, **dict(decoder_conf),
+                with_right=reverse_weight > 0.0)
 
     # ---- training ----
 
@@ -61,11 +80,6 @@ class Transducer(nn.Module):
                 labels: torch.Tensor, label_lens: torch.Tensor):
         """The combined loss: {"loss", "loss_rnnt", "loss_ctc", "loss_att",
         "th_accuracy"}.  Dropout follows ``.train()``/``.eval()``."""
-        if self.has_decoder and self.attention_weight > 0.0:
-            raise NotImplementedError(
-                "the attention decoder's loss (decoder: bitransformer) waits "
-                "for ROADMAP Queue 1 item 9; train with decoder: None or "
-                "model_conf.attention_weight: 0")
         enc, enc_lens = self.encoder(feats, feat_lens)
         ys_blank = add_blank(labels, label_lens, self.blank_id)
         pred_out = self.predictor(ys_blank)
@@ -81,12 +95,21 @@ class Transducer(nn.Module):
         if self.ctc_weight > 0.0:
             loss_ctc = ctc_loss(self.ctc(enc), enc_lens, labels, label_lens,
                                 blank_id=self.blank_id)
-        loss_att = zero
+        loss_att, acc_att = zero, zero
+        if self.decoder is not None:
+            loss_att, acc_att = self._att_loss(enc, enc_lens, labels,
+                                               label_lens)
         loss = (self.transducer_weight * loss_rnnt
                 + self.ctc_weight * loss_ctc
                 + self.attention_weight * loss_att)
         return {"loss": loss, "loss_rnnt": loss_rnnt, "loss_ctc": loss_ctc,
-                "loss_att": loss_att, "th_accuracy": zero}
+                "loss_att": loss_att, "th_accuracy": acc_att}
+
+    def _att_loss(self, enc, enc_lens, labels, label_lens):
+        return attention_loss(self.decoder, enc, enc_lens, labels,
+                              label_lens, self.sos, self.eos,
+                              self.reverse_weight, self.lsm_weight,
+                              self.ignore_id, self.length_normalized_loss)
 
     # ---- inference surfaces ----
 
@@ -118,3 +141,14 @@ class Transducer(nn.Module):
     @torch.no_grad()
     def joint_preact(self, enc_p_t: torch.Tensor, pred_out: torch.Tensor):
         return self.joint.preact(enc_p_t, pred_out)
+
+    @torch.no_grad()
+    def decoder_forward(self, enc, enc_lens, ys_in, ys_lens, r_ys_in,
+                        reverse_weight: float):
+        """(left logits, right logits) of the attention decoder (attention
+        rescoring)."""
+        if self.decoder is None:
+            raise ValueError("this transducer has no attention decoder "
+                             "(decoder: None or attention_weight 0)")
+        return self.decoder(enc, enc_lens, ys_in, ys_lens, r_ys_in,
+                            reverse_weight)

@@ -35,10 +35,14 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 20
-    # the training slice's modules are among those imported
+    # the training slice's modules and those of the attention decoder, the
+    # short-form CLI and the crash-repro tool are among those imported
     assert {f"{PKG}.{m}" for m in (
         "ops.ffn", "ops.rnnt", "train.schedulers", "train.train_step",
-        "bin.train_bench")} <= set(mods)
+        "bin.train_bench", "ops.multi_product", "ops.losses",
+        "models.attention", "models.decoder", "models.asr_model",
+        "data.pipeline", "bin.recognize",
+        "tools.repro_tpu_worker_crash")} <= set(mods)
 
 
 def test_port_sources_do_not_name_the_jax_package():
