@@ -4,13 +4,17 @@
 Phases, each fatal on failure (no phase is skipped or caught):
   1. device report: the card's name and power limit (nvidia-smi);
   2. build: every kernel under paper_accurate_fast_cheap_tpu_torch/csrc/,
-     one nvcc per source, all started together;
+     one nvcc per source, all started together, with ptxas's registers and
+     spills and the HGMMA (wgmma) count of the K6 and K7 libraries;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes its paths give it, in float32 and bfloat16, with its time,
-     the plain version's time, a library yardstick where one exists, and
-     the least time the card could take (bound); K6's gradient against
-     autograd through its plain version; K7 at the crash-repro tool's
-     shapes (2, 3 and 1 buffers); K1 under autograd at the training
+     shapes its paths give it, in float32 and bfloat16, with its time per
+     call (eager, and on the device alone: calls replayed from a CUDA
+     graph), the plain version's time, a library yardstick where one
+     exists, and the least time the card could take (bound); K6 in all
+     four activations and both dtypes at 5984, 71936 and 777 rows, and
+     its gradient against autograd through its plain version; K7 at the
+     crash-repro tool's shapes (2, 3, 1 and 8 buffers, and R = 256); the
+     K6 and K7 wrappers' shape refusals; K1 under autograd at the training
      step's shape (its analytic backward is plain PyTorch), in f32 and in
      the step's bf16, y and gradients against the chunked WKV, with the
      backward's time;
@@ -38,7 +42,8 @@ Phases, each fatal on failure (no phase is skipped or caught):
      1500 frames x 40 labels, mixed precision, with the counters checked;
  11. the K6 path: the same step with the encoder's dropout at 0 and every
      feed-forward on impl "pallas", against the "xla" step, with K6's
-     counter checked;
+     counter checked, both steps' times and profiled device-busy times
+     in turns;
  12. the paper's training step: train_bench's main on
      examples/gigaspeech/conf/rwkvbi_ds4k31nc_12le_trans_shortform.yaml
      at the same shape, with the counters, and its profile;
@@ -104,6 +109,33 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, launches: int = 20, replays: int = 5) -> float:
+    """The kernel's device time per call, without the host: ``launches``
+    calls captured in one CUDA graph, the graph replayed ``replays`` times
+    between CUDA events.  The wrappers' counters count the captured calls
+    (outside every counted path)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * launches)
+    del graph
+    return ms
+
+
 def phase_device() -> str:
     line = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -128,8 +160,22 @@ def phase_build():
         if os.path.exists(path):
             with open(path) as f:
                 for ln in f:
-                    if "registers" in ln or "spill" in ln:
+                    if any(w in ln for w in ("registers", "spill", "arning",
+                                             "entry function", "(C75")):
                         log(f"  ptxas {name}: {ln.strip()}")
+    # the bf16 paths of K6 and K7 must reach the tensor cores: wgmma is
+    # HGMMA in the SASS
+    tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    hgmma = {}
+    if os.path.exists(tool):
+        for name in ("ffn", "multi_product"):
+            sass = subprocess.run([tool, "-sass", cuda_lib.lib_path(name)],
+                                  capture_output=True, text=True).stdout
+            hgmma[name] = sum("HGMMA" in ln for ln in sass.splitlines())
+        log(f"HGMMA instructions (cuobjdump -sass): {json.dumps(hgmma)}")
+    else:
+        log("HGMMA instructions: not counted (no cuobjdump beside nvcc)")
+    return all(n > 0 for n in hgmma.values())
 
 
 def _randn(shape, g, scale=1.0, shift=0.0):
@@ -172,6 +218,7 @@ def check_wkv(g):
         f"bf16: {err_b:.3e} <= {1e-2 * scale_b:.3e} [1e-2 x scale] "
         f"{'ok' if okb else 'FAIL'}")
     ms = cuda_time_ms(lambda: K.wkv6_cuda(rb, kb, vb, wb, u), 10)
+    dev = device_ms(lambda: K.wkv6_cuda(rb, kb, vb, wb, u), 10)
     plain_ms = cuda_time_ms(
         lambda: K.wkv6_chunked(rb, kb, vb, wb, u), 3, warmup=1)
     # Bound: r, k, v, w read and y written once in bf16.  The operations
@@ -182,9 +229,11 @@ def check_wkv(g):
     nbytes = 5 * B * T * H * N * 2 + H * N * 4
     flops = B * T * H * (4 * N * N + 3 * N)
     bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
-    log(f"K1 wkv6 bf16 ({B}x{T}x{H}x{N}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library n/a, bound {bms:.4f} ms ({by})")
-    out.update(name="wkv6_fwd", max_abs_err=err_b, ms=ms, plain_ms=plain_ms,
+    log(f"K1 wkv6 bf16 ({B}x{T}x{H}x{N}): kernel {ms:.4f} ms (device "
+        f"{dev:.4f}), plain {plain_ms:.4f} ms, library n/a, bound "
+        f"{bms:.4f} ms ({by})")
+    out.update(name="wkv6_fwd", max_abs_err=err_b, ms=ms, device_ms=dev,
+               plain_ms=plain_ms,
                bound_ms=bms, bound_by=by, library_ms=None,
                max_abs_err_f32=err)
     return out, ok32 and okb
@@ -244,6 +293,8 @@ def check_joint_topk(g):
     ctc = ctc_full.bfloat16()[:, 1]
     ms = cuda_time_ms(
         lambda: K.joint_top_k_vocab(xb, wb, bb, ctc, N, log_tw, log_cw), 50)
+    dev = device_ms(
+        lambda: K.joint_top_k_vocab(xb, wb, bb, ctc, N, log_tw, log_cw))
     plain_ms = cuda_time_ms(
         lambda: K.joint_top_k_vocab_plain(xb, wb, bb, ctc, N, log_tw,
                                           log_cw), 20)
@@ -259,9 +310,10 @@ def check_joint_topk(g):
     flops = 2 * R * D * V
     bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
     log(f"K2 joint_topk bf16 (R={R}, D={D}, V={V}, k={N}): kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-        f"{bms:.4f} ms ({by})")
+        f"ms (device {dev:.4f}), plain {plain_ms:.4f} ms, library "
+        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return dict(name="joint_topk", max_abs_err=res[torch.bfloat16], ms=ms,
+                device_ms=dev,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms,
                 max_abs_err_f32=res[torch.float32]), ok_all
@@ -303,6 +355,7 @@ def check_lstm(g):
     cast = [(a.bfloat16(), b_.bfloat16(), c.bfloat16()) for a, b_, c in layers]
     args = (x.bfloat16(), hs, cs, cast, wp.bfloat16(), bp.bfloat16())
     ms = cuda_time_ms(lambda: K.lstm_predictor_step(*args), 50)
+    dev = device_ms(lambda: K.lstm_predictor_step(*args))
     plain_ms = cuda_time_ms(lambda: K.lstm_step_plain(*args), 50)
     flat = []
     for a, b_, c in cast:
@@ -320,10 +373,11 @@ def check_lstm(g):
     flops = 2 * R * (sum(4 * H * ((E if i == 0 else H) + H)
                          for i in range(L)) + H * O)
     bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
-    log(f"K3 lstm_step bf16 (R={R}, 2x{H}, O={O}): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-        f"{bms:.4f} ms ({by})")
+    log(f"K3 lstm_step bf16 (R={R}, 2x{H}, O={O}): kernel {ms:.4f} ms "
+        f"(device {dev:.4f}), plain {plain_ms:.4f} ms, library "
+        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return dict(name="lstm_step", max_abs_err=errs[torch.bfloat16], ms=ms,
+                device_ms=dev,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms,
                 max_abs_err_f32=errs[torch.float32]), ok_all
@@ -374,6 +428,7 @@ def check_fused_topk(g):
     lb, cb = logp.bfloat16(), ctc_full.bfloat16()[:, 1]
     ms = cuda_time_ms(lambda: K.fused_top_k_vocab(lb, cb, N, log_tw, log_cw),
                       50)
+    dev = device_ms(lambda: K.fused_top_k_vocab(lb, cb, N, log_tw, log_cw))
     plain_ms = cuda_time_ms(
         lambda: K.fused_top_k_vocab_plain(lb, cb, N, log_tw, log_cw), 20)
 
@@ -387,10 +442,11 @@ def check_fused_topk(g):
     # f32 operations per score (two adds, max, |a-b|, exp, log1p)
     nbytes = (R * V + B * V) * 2 + R * N * 8
     bms, by = bound_ms(nbytes, 6 * R * V, PEAK_F32_FLOPS)
-    log(f"K4 fused_topk bf16 (R={R}, V={V}, k={N}): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-        f"{bms:.4f} ms ({by})")
+    log(f"K4 fused_topk bf16 (R={R}, V={V}, k={N}): kernel {ms:.4f} ms "
+        f"(device {dev:.4f}), plain {plain_ms:.4f} ms, library "
+        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return dict(name="fused_topk", max_abs_err=res[torch.bfloat16], ms=ms,
+                device_ms=dev,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms,
                 max_abs_err_f32=res[torch.float32]), ok_all
@@ -431,24 +487,40 @@ def check_topk(g):
         log(f"K5 topk {name} {tuple(xc.shape)} k={k}: identical values and "
             f"indices {'ok' if ok else 'FAIL'}")
     ms = cuda_time_ms(lambda: K.top_k_vocab(x, N), 50)
+    dev = device_ms(lambda: K.top_k_vocab(x, N))
     plain_ms = cuda_time_ms(lambda: K.top_k_vocab_plain(x, N), 20)
     lib_ms = cuda_time_ms(lambda: torch.topk(x, N), 50)
     R = B * N
     nbytes = R * V * 4 + R * N * 8
     bms, by = bound_ms(nbytes, R * V, PEAK_F32_FLOPS)
-    log(f"K5 topk f32 (R={R}, V={V}, k={N}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bms:.4f} ms "
-        f"({by})")
-    return dict(name="topk", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    log(f"K5 topk f32 (R={R}, V={V}, k={N}): kernel {ms:.4f} ms (device "
+        f"{dev:.4f}), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"bound {bms:.4f} ms ({by})")
+    return dict(name="topk", max_abs_err=err, ms=ms, device_ms=dev,
+                plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=lib_ms), ok_all
+
+
+def _refuses(what: str, fn, exc) -> bool:
+    """One refusal of a kernel wrapper, raised before any launch."""
+    try:
+        fn()
+    except exc as e:
+        log(f"  refused as expected ({what}): {type(e).__name__}: {e}")
+        return True
+    log(f"  FAIL: {what} was not refused")
+    return False
 
 
 def check_multi_product(g):
     """K7 at the crash-repro tool's pinned_bisect shapes: x (4096, 512) bf16
-    against 2 buffers of (512, 5120) (the defaults, the row's numbers), 3
-    buffers and 1 buffer, each set totalling the default 10 MB."""
+    against 2 buffers of (512, 5120) (the defaults, the row's numbers), then
+    3, 1 and 8 buffers, each set totalling the default 10 MB, and 2 buffers
+    at R = 256 (one row tile), each within one bf16 ulp of the plain
+    version; then the wrapper's refusals."""
     import torch
 
+    from paper_accurate_fast_cheap_tpu_torch.ops import cuda_lib
     from paper_accurate_fast_cheap_tpu_torch.ops import multi_product as K
     from paper_accurate_fast_cheap_tpu_torch.tools.repro_tpu_worker_crash \
         import buffer_cols
@@ -456,47 +528,60 @@ def check_multi_product(g):
     R, D = 4096, 512
     x = _randn((R, D), g).bfloat16()
     ok_all, row = True, None
-    for nbuf in (2, 3, 1):
+    for nbuf, rows in ((2, R), (3, R), (1, R), (8, R), (2, 256)):
         H = buffer_cols(10.0, nbuf, D)
         ws = [_randn((D, H), g, 0.02).bfloat16() for _ in range(nbuf)]
-        yk, yp = K.multi_product(x, ws), K.multi_product_plain(x, ws)
+        xr = x[:rows]
+        yk, yp = K.multi_product(xr, ws), K.multi_product_plain(xr, ws)
         # both sum exact bf16 products in f32 (in different orders) and
         # round once: one bf16 ulp at the output's scale
         scale = float(yp.float().abs().max())
         ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
         err = float((yk.float() - yp.float()).abs().max())
         ok = (err <= ulp and yk.dtype == torch.bfloat16
-              and tuple(yk.shape) == (R, H)
+              and tuple(yk.shape) == (rows, H)
               and bool(torch.isfinite(yk.float()).all()))
         ok_all = ok_all and ok
-        ms = cuda_time_ms(lambda: K.multi_product(x, ws), 20)
-        plain_ms = cuda_time_ms(lambda: K.multi_product_plain(x, ws), 10)
+        ms = cuda_time_ms(lambda: K.multi_product(xr, ws), 20)
+        dev = device_ms(lambda: K.multi_product(xr, ws))
+        plain_ms = cuda_time_ms(lambda: K.multi_product_plain(xr, ws), 10)
         stacked = torch.stack(ws)
         # yardstick only: one cuBLAS GEMM over the stacked buffers
         lib_ms = cuda_time_ms(
-            lambda: torch.einsum("rd,bdh->rh", x, stacked), 20)
-        bms, by = bound_ms((R * D + nbuf * D * H + R * H) * 2,
-                           2 * R * D * H * nbuf, PEAK_BF16_FLOPS)
-        log(f"K7 multi_product bf16 ({R}x{D} @ {nbuf}x{D}x{H}): "
+            lambda: torch.einsum("rd,bdh->rh", xr, stacked), 20)
+        bms, by = bound_ms((rows * D + nbuf * D * H + rows * H) * 2,
+                           2 * rows * D * H * nbuf, PEAK_BF16_FLOPS)
+        log(f"K7 multi_product bf16 ({rows}x{D} @ {nbuf}x{D}x{H}): "
             f"max_abs_err {err:.3e} <= one bf16 ulp {ulp:.3e} (scale "
-            f"{scale:.3f}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, library (einsum) {lib_ms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by})")
+            f"{scale:.3f}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms "
+            f"(device {dev:.4f}), plain {plain_ms:.4f} ms, library (einsum) "
+            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
         if row is None:
             row = dict(name="multi_product", max_abs_err=err, ms=ms,
-                       plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                       library_ms=lib_ms)
+                       device_ms=dev, plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=by, library_ms=lib_ms)
+    ok_all = _refuses("K7 with H = 1284, not a multiple of 8", lambda:
+                      K.multi_product(x[:256], [_randn((D, 1284), g)
+                                                .bfloat16()]),
+                      cuda_lib.KernelError) and ok_all
+    ok_all = _refuses("K7 with D = 500, not a multiple of 8", lambda:
+                      K.multi_product(_randn((256, 500), g).bfloat16(),
+                                      [_randn((500, 1280), g).bfloat16()]),
+                      cuda_lib.KernelError) and ok_all
     return row, ok_all
 
 
 def check_ffn(g):
-    """K6 at the training step's FFN (16 x 374 rows; f32, since the
-    encoder's activations stay f32 under bf16 weights) with every
-    activation, at the decode main path's FFN (32 x 2248 rows, bf16), and
-    fused_ffn's gradient against autograd through the plain version."""
+    """K6 against ffn_plain in all four activations and both dtypes at the
+    training step's FFN (16 x 374 rows; the step runs it in f32, since the
+    encoder's activations stay f32 under bf16 weights), at the decode main
+    path's FFN (32 x 2248 rows, bf16 there) and at a ragged 777 rows;
+    fused_ffn's gradient against autograd through the plain version; the
+    wrapper's refusals; then the times of both kernels."""
     import torch
     import torch.nn.functional as F
 
+    from paper_accurate_fast_cheap_tpu_torch.ops import cuda_lib
     from paper_accurate_fast_cheap_tpu_torch.ops import ffn as K
 
     D, H = 512, 2048
@@ -504,6 +589,7 @@ def check_ffn(g):
     w2, b2 = _randn((D, H), g, H ** -0.5), _randn((D,), g, 0.1)
     x_train = _randn((TRAIN_BATCH * TRAIN_ENC_FRAMES, D), g)
     x_dec = _randn((32 * 2248, D), g)
+    x_rag = _randn((777, D), g)
     ok_all, errs = True, {}
 
     def agree(x, dt, act):
@@ -516,21 +602,17 @@ def check_ffn(g):
         scale = float(yp.abs().max())
         err = float((yk - yp).abs().max())
         lim = (1e-5 if dt == torch.float32 else 1e-2) * scale
-        return err, lim, err <= lim
+        return err, lim, err <= lim and tuple(yk.shape) == tuple(x.shape)
 
-    for act in K.ACTIVATIONS:
-        for dt in (torch.float32, torch.bfloat16):
-            err, lim, ok = agree(x_train, dt, act)
-            ok_all = ok_all and ok
-            errs[act, dt] = err
-            log(f"K6 ffn {act} {str(dt)[6:]} (R={x_train.shape[0]}): "
-                f"max_abs_err {err:.3e} <= {lim:.3e} "
-                f"{'ok' if ok else 'FAIL'}")
-    for dt in (torch.float32, torch.bfloat16):
-        err, lim, ok = agree(x_dec, dt, "swish")
-        ok_all = ok_all and ok
-        log(f"K6 ffn swish {str(dt)[6:]} (R={x_dec.shape[0]}): max_abs_err "
-            f"{err:.3e} <= {lim:.3e} {'ok' if ok else 'FAIL'}")
+    for x in (x_train, x_dec, x_rag):
+        for act in K.ACTIVATIONS:
+            for dt in (torch.float32, torch.bfloat16):
+                err, lim, ok = agree(x, dt, act)
+                ok_all = ok_all and ok
+                errs[x.shape[0], act, dt] = err
+                log(f"K6 ffn {act} {str(dt)[6:]} (R={x.shape[0]}): "
+                    f"max_abs_err {err:.3e} <= {lim:.3e} "
+                    f"{'ok' if ok else 'FAIL'}")
 
     # gradient: fused_ffn's backward recomputes through ffn_plain, so it
     # must equal autograd through ffn_plain up to the f32 forward's rounding
@@ -547,6 +629,15 @@ def check_ffn(g):
         f"{x_train.shape[0]}) vs autograd through ffn_plain: max rel err "
         f"{gerr:.3e} <= 1e-5 {'ok' if gok else 'FAIL'}")
 
+    x4 = x_rag[:64]
+    ok_all = _refuses("K6 with D = 256", lambda: K.fused_ffn(
+        x4[:, :256], w1[:, :256], b1, w2[:256], b2[:256]),
+        cuda_lib.KernelError) and ok_all
+    ok_all = _refuses("K6 with H = 2000, not a multiple of 256", lambda:
+                      K.fused_ffn(x4, w1[:2000], b1[:2000],
+                                  w2[:, :2000], b2),
+                      cuda_lib.KernelError) and ok_all
+
     def times(x, dt):
         args = (x.to(dt), w1.to(dt), b1.to(dt), w2.to(dt), b2.to(dt))
 
@@ -555,6 +646,7 @@ def check_ffn(g):
                             args[3], args[4])
 
         ms = cuda_time_ms(lambda: K.fused_ffn(*args), 10)
+        dev = device_ms(lambda: K.fused_ffn(*args), 10)
         plain_ms = cuda_time_ms(lambda: K.ffn_plain(*args), 10)
         lib_ms = cuda_time_ms(library, 10)
         R, size = x.shape[0], x.element_size()
@@ -563,15 +655,16 @@ def check_ffn(g):
                            PEAK_F32_FLOPS if dt == torch.float32
                            else PEAK_BF16_FLOPS)
         log(f"K6 ffn {str(dt)[6:]} ({R}x{D}->{H}->{D}, swish): kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
-            f"ms, bound {bms:.4f} ms ({by})")
-        return ms, plain_ms, lib_ms, bms, by
+            f"{ms:.4f} ms (device {dev:.4f}), plain {plain_ms:.4f} ms, "
+            f"library {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        return ms, dev, plain_ms, lib_ms, bms, by
 
     times(x_dec, torch.bfloat16)
-    ms, plain_ms, lib_ms, bms, by = times(x_train, torch.float32)
-    return dict(name="ffn", max_abs_err=errs["swish", torch.float32], ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms), ok_all
+    ms, dev, plain_ms, lib_ms, bms, by = times(x_train, torch.float32)
+    return dict(name="ffn", max_abs_err=errs[x_train.shape[0], "swish",
+                                             torch.float32],
+                ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms), ok_all
 
 
 def check_wkv_backward(g) -> bool:
@@ -1336,6 +1429,33 @@ def phase_train(work: str):
     return ok, counts
 
 
+def _timed_step(bench, seed: int):
+    """One warm-up step, one step timed on the host clock (to a
+    synchronize) and one under torch.profiler: (step ms, device busy ms,
+    device ms of K6's kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bench.step_fn(bench.state, bench.batch, seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bench.step_fn(bench.state, bench.batch, seed)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bench.step_fn(bench.state, bench.batch, seed)
+        torch.cuda.synchronize()
+    busy = k6 = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy += e.device_time_total / 1e3
+            if "ffn_f32_kernel" in e.name or "ffn_tc_kernel" in e.name:
+                k6 += e.device_time_total / 1e3
+    return ms, busy, k6
+
+
 def phase_train_k6(work: str):
     """The same step with the encoder's dropout at 0 and every feed-forward
     on impl "pallas" (K6), against the impl "xla" step from the same state,
@@ -1375,6 +1495,19 @@ def phase_train_k6(work: str):
         f" vs {lx:.4f} (rel {l_err:.2e} <= 1e-3), grad norm {gp:.4f} vs "
         f"{gx:.4f} (rel {g_err:.2e} <= 1e-2), K6 launches {np_} (xla: {nx}) "
         f"of {len(ffns)} feed-forwards {'ok' if cmp_ok else 'FAIL'}")
+    # the two steps' times in turns, xla, K6, K6, xla
+    steps = {"xla": [], "pallas": []}
+    for impl in ("xla", "pallas", "pallas", "xla"):
+        for m in ffns:
+            m.impl = impl
+        steps[impl].append(_timed_step(bench, 7))
+    for m in ffns:
+        m.impl = "pallas"
+    for impl, name in (("xla", "xla step"), ("pallas", "K6 path step")):
+        log(f"{name} (B{TRAIN_BATCH} x {TRAIN_FRAMES} frames, two readings): "
+            + "; ".join(f"{ms:.2f} ms, device busy {busy:.2f} ms "
+                        f"(torch.profiler), K6 kernels {k6:.2f} ms"
+                        for ms, busy, k6 in steps[impl]))
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     report = train_bench.run(bench, args)
@@ -1713,20 +1846,24 @@ def main() -> int:
 
     t_start = time.perf_counter()
     card = phase_device()
-    phase_build()
+    tensor_cores = phase_build()
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     rows, ok = [], True
     for check in (check_wkv, check_joint_topk, check_lstm, check_fused_topk,
-                  check_topk, check_ffn, check_multi_product):
+                  check_topk, check_multi_product, check_ffn):
         row, good = check(g)
         torch.cuda.synchronize()
         rows.append(row)
         ok = ok and good
     failed = [] if ok else ["kernels vs plain"]
+    if not tensor_cores:
+        failed.append("no HGMMA in the bf16 K6/K7 libraries")
     if not check_wkv_backward(g):
         failed.append("K1 backward vs autograd")
     if args.kernels_only:
+        log("chip_smoke --kernels-only: "
+            + (f"FAILED: {', '.join(failed)}" if failed else "every check ok"))
         return 1 if failed else 0
 
     rng = np.random.RandomState(0)
@@ -1803,8 +1940,8 @@ def main() -> int:
         row.update(route="cuda", source=src, replaces=rep, launches=n,
                    launches_path=path)
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "launches_path", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -128,6 +128,13 @@ def check_device(what: str, ref, *tensors) -> None:
                              f"{ref.device}; all must share one CUDA device")
 
 
+def aligned16(t):
+    """``t`` contiguous with a 16-byte-aligned start (TMA and 16-byte
+    vector loads need it): a copy only for a view that starts mid-row."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def stream_ptr(device) -> int:
     import torch
 

@@ -6,6 +6,14 @@ Port of the TPU kernel ``ops/ffn_pallas.py`` (``_ffn_kernel`` via
 row, the hidden activation kept on chip.  Weights are in nn.Linear layout
 (W1 (H, D), W2 (D, H): the transposes of the JAX kernel's).
 
+The source holds two kernels: in bf16, wgmma on the tensor cores over
+TMA-fed weight tiles (64-row blocks, two warpgroups splitting y's 512
+columns); in f32, 3xTF32 on the tensor cores (each operand split into two
+TF32 halves, which keeps f32 precision; 48-row blocks, the y tile in
+registers).  Both take D = 512 and H a multiple of
+256 only: :func:`check_kernel_shape` raises a :class:`KernelError` for any
+other width before a launch.
+
 :func:`fused_ffn` casts the weights to x's dtype, as the JAX wrapper does,
 and launches the kernel for a CUDA tensor (or raises); for a CPU tensor it
 runs :func:`ffn_plain` on the same cast weights.  It is differentiable: the
@@ -31,6 +39,18 @@ ACTIVATIONS = {
 _ACT_CODE = {name: i for i, name in enumerate(ACTIVATIONS)}
 
 _ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
+KERNEL_D = 512      # the model width the kernels take
+KERNEL_H_STEP = 256  # H must be a positive multiple of this
+
+
+def check_kernel_shape(D: int, H: int) -> None:
+    """Raise a KernelError unless the CUDA kernels take (D, H): D = 512
+    (y's 512 columns are held in registers, split over the warps) and H a
+    positive multiple of 256 (whole hidden slices)."""
+    if D != KERNEL_D or H < KERNEL_H_STEP or H % KERNEL_H_STEP:
+        raise cuda_lib.KernelError(
+            f"fused_ffn: the CUDA kernel takes D = {KERNEL_D} and H a "
+            f"multiple of {KERNEL_H_STEP}, got D = {D}, H = {H}")
 
 
 def ffn_plain(x, w1, b1, w2, b2, activation: str = "swish"):
@@ -56,17 +76,16 @@ def _ffn_kernel(x, w1, b1, w2, b2, activation):
     if activation not in _ACT_CODE:
         raise ValueError(f"fused_ffn: activation {activation!r} not in "
                          f"{sorted(_ACT_CODE)}")
+    check_kernel_shape(D, H)
     cuda_lib.check_device("fused_ffn", x, w1, b1, w2, b2)
     code = cuda_lib.dtype_code(x.dtype)
-    x, w1, b1, w2, b2 = (t.contiguous() for t in (x, w1, b1, w2, b2))
+    x, w1, b1, w2, b2 = (cuda_lib.aligned16(t) for t in (x, w1, b1, w2, b2))
     y = torch.empty_like(x)
     fn = cuda_lib.load("ffn").pafc_ffn
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(code, _ACT_CODE[activation], R, D, H, x.data_ptr(),
              w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
              y.data_ptr(), cuda_lib.stream_ptr(x.device))
-    # the C entry rejects a D whose f32 row-tile accumulator does not fit a
-    # block's shared memory
     cuda_lib.check(err, f"ffn (R {R}, D {D}, H {H})")
     fused_ffn.launches += 1
     return y

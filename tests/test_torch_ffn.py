@@ -165,3 +165,14 @@ def test_unknown_activation_and_impl_raise():
     with pytest.raises(ValueError):
         t_conv.PositionwiseFeedForward(8, 16, impl="triton")
     assert t_ffn.fused_ffn.launches == 0  # the CPU runs the plain version
+
+
+def test_kernel_shape_limits():
+    """The CUDA kernels' widths, checked by a plain function before any
+    launch: D = 512 and H a positive multiple of 256.  The CPU path runs
+    the plain version, which takes any width."""
+    t_ffn.check_kernel_shape(512, 2048)
+    t_ffn.check_kernel_shape(512, 256)
+    for D, H in ((256, 2048), (640, 2560), (512, 2000), (512, 128)):
+        with pytest.raises(t_ffn.cuda_lib.KernelError, match="D = 512"):
+            t_ffn.check_kernel_shape(D, H)

@@ -134,3 +134,17 @@ def test_tool_sort_topk_and_pallas_lf_small_on_cpu():
     assert np.isfinite(y)
     np.testing.assert_allclose(y, float(wkv6_chunked(r, k, v, w, u).sum()),
                                rtol=1e-6)
+
+
+def test_kernel_shape_limits():
+    """The kernel's TMA loads need 16-byte rows: D and H multiples of 8,
+    checked by a plain function before any launch; on the CPU the plain
+    version takes any width."""
+    K.check_kernel_shape(512, 5120)
+    K.check_kernel_shape(8, 8)
+    for D, H in ((500, 1280), (512, 1284)):
+        with pytest.raises(K.cuda_lib.KernelError, match="multiples of 8"):
+            K.check_kernel_shape(D, H)
+    x = torch.ones(256, 12, dtype=torch.bfloat16)
+    w = torch.ones(12, 20, dtype=torch.bfloat16)
+    assert torch.equal(K.multi_product(x, [w]), K.multi_product_plain(x, [w]))
