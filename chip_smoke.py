@@ -5,7 +5,8 @@ Phases, each fatal on failure (no phase is skipped or caught):
   1. device report: the card's name and power limit (nvidia-smi);
   2. build: every kernel under paper_accurate_fast_cheap_tpu_torch/csrc/,
      one nvcc per source, all started together, with ptxas's registers and
-     spills and the HGMMA (wgmma) count of the K6 and K7 libraries;
+     spills and the HGMMA (wgmma) count of the K2, K3, K6 and K7
+     libraries;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes its paths give it, in float32 and bfloat16, with its time per
      call (eager, and on the device alone: calls replayed from a CUDA
@@ -26,7 +27,8 @@ Phases, each fatal on failure (no phase is skipped or caught):
      (beam 8) -> finalize, with the kernels' launch counters checked;
   6. the recognize_wav CLI at full width, 32 x 90 s windows of one WAV, for
      the HAT and the standard flagship, with the counters, the TXT and the
-     CTM checked;
+     CTM checked; then at beam 40 on 2 windows in f32, its own route (K2)
+     against the xla route (K5), the TXT byte for byte;
   7. the crash-repro tool's five cases (tools/repro_tpu_worker_crash.py):
      pinned_bisect (K7), v7_encoder and pallas_lf (K1), sort_topk (K5) and
      pinned_outer_jit at 4 x 9000 frames (K1-K3), with the counters;
@@ -136,6 +138,31 @@ def device_ms(fn, launches: int = 20, replays: int = 5) -> float:
     return ms
 
 
+def kernel_split(fn, calls: int = 20) -> dict:
+    """Device ms per call of each CUDA kernel that ``fn`` launches, by
+    kernel name (torch.profiler's CUDA activity over ``calls`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0].split("<")[0]
+            name = name.split("::")[-1]
+            split[name] = split.get(name, 0.0) + us / 1e3 / calls
+    return split
+
+
 def phase_device() -> str:
     line = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -163,12 +190,12 @@ def phase_build():
                     if any(w in ln for w in ("registers", "spill", "arning",
                                              "entry function", "(C75")):
                         log(f"  ptxas {name}: {ln.strip()}")
-    # the bf16 paths of K6 and K7 must reach the tensor cores: wgmma is
-    # HGMMA in the SASS
+    # the bf16 paths of K2, K3, K6 and K7 must reach the tensor cores:
+    # wgmma is HGMMA in the SASS
     tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
     hgmma = {}
     if os.path.exists(tool):
-        for name in ("ffn", "multi_product"):
+        for name in ("joint_topk", "lstm_step", "ffn", "multi_product"):
             sass = subprocess.run([tool, "-sass", cuda_lib.lib_path(name)],
                                   capture_output=True, text=True).stdout
             hgmma[name] = sum("HGMMA" in ln for ln in sass.splitlines())
@@ -256,7 +283,9 @@ def _topk_agree(vals_k, idx_k, vals_p, idx_p, fused, tol):
 
 
 def check_joint_topk(g):
-    """K2 at one beam frame of the flagship: R = 32 x beam 8 rows."""
+    """K2 at one beam frame of the flagship: R = 32 x beam 8 rows, k = 8;
+    then a ragged R = 777 (111 x 7, k = 7) and k = 16, 32 (the warp
+    selection's wider register lists), 40 and 128 (the block selection)."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.ops import joint_topk as K
@@ -264,33 +293,42 @@ def check_joint_topk(g):
     B, N, D, V, Vp = 32, 8, 640, 5002, 5120
     R = B * N
     log_tw, log_cw = float(np.log(0.7)), float(np.log(0.3))
-    x = torch.tanh(_randn((R, D), g))
+    x_all = torch.tanh(_randn((777, D), g))
+    x = x_all[:R]
     w = _randn((V, D), g, D ** -0.5)
     b = torch.zeros(V, device="cuda")
     b[0] += 2.5
-    ctc_full = torch.full((B, 3, Vp), -float("inf"), device="cuda")
-    ctc_full[:, :, :V] = torch.log_softmax(_randn((B, 3, V), g, 2.0), -1)
+    ctc_full = torch.full((111, 3, Vp), -float("inf"), device="cuda")
+    ctc_full[:, :, :V] = torch.log_softmax(_randn((111, 3, V), g, 2.0), -1)
     res, ok_all = {}, True
     # f32 and bf16 inputs: both paths take the product, the logsumexp and
     # the fusion in f32 on identical inputs, so the gap is summation order
     # (D=640 products, V=5002 exponentials): values 1e-5 abs + 1e-5 rel.
+    cases = ((B, N, N), (111, 7, 7), (B, N, 16), (B, N, 32), (B, N, 40),
+             (B, N, 128))
     for dt in (torch.float32, torch.bfloat16):
-        xd, wd, bd = x.to(dt), w.to(dt), b.to(dt)
-        ctc = ctc_full.to(dt)[:, 1]               # strided, as in the beam
-        vk, ik = K.joint_top_k_vocab(xd, wd, bd, ctc, N, log_tw, log_cw)
-        vp, ip = K.joint_top_k_vocab_plain(xd, wd, bd, ctc, N, log_tw, log_cw)
-        logp = torch.log_softmax(xd.float() @ wd.float().T + bd.float(), -1)
-        fused = torch.logaddexp(
-            log_tw + logp, log_cw + ctc[:, :V].float().repeat_interleave(N, 0))
-        verr, n_mis, ok = _topk_agree(vk, ik, vp, ip,
-                                      fused.reshape(B, N, V), 1e-5)
-        ok_all = ok_all and ok
-        log(f"K2 joint_topk {str(dt)[6:]}: values max_abs_err {verr:.3e} "
-            f"<= 1e-5 (+1e-5 rel), index mismatches {n_mis} (near-ties "
-            f"only) {'ok' if ok else 'FAIL'}")
-        res[dt] = verr
+        for nb, nr, k in cases:
+            xd, wd, bd = x_all[:nb * nr].to(dt), w.to(dt), b.to(dt)
+            ctc = ctc_full[:nb].to(dt)[:, 1]      # strided, as in the beam
+            vk, ik = K.joint_top_k_vocab(xd, wd, bd, ctc, k, log_tw, log_cw)
+            vp, ip = K.joint_top_k_vocab_plain(xd, wd, bd, ctc, k, log_tw,
+                                               log_cw)
+            logp = torch.log_softmax(xd.float() @ wd.float().T + bd.float(),
+                                     -1)
+            fused = torch.logaddexp(
+                log_tw + logp,
+                log_cw + ctc[:, :V].float().repeat_interleave(nr, 0))
+            verr, n_mis, ok = _topk_agree(vk, ik, vp, ip,
+                                          fused.reshape(nb, nr, V), 1e-5)
+            ok_all = ok_all and ok
+            log(f"K2 joint_topk {str(dt)[6:]} (R={nb * nr}, k={k}): values "
+                f"max_abs_err {verr:.3e} <= 1e-5 (+1e-5 rel), index "
+                f"mismatches {n_mis} (near-ties only) "
+                f"{'ok' if ok else 'FAIL'}")
+            if (nb, k) == (B, N):
+                res[dt] = verr
     xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
-    ctc = ctc_full.bfloat16()[:, 1]
+    ctc = ctc_full[:B].bfloat16()[:, 1]
     ms = cuda_time_ms(
         lambda: K.joint_top_k_vocab(xb, wb, bb, ctc, N, log_tw, log_cw), 50)
     dev = device_ms(
@@ -306,6 +344,10 @@ def check_joint_topk(g):
         return torch.topk(fused.reshape(B, N, V), N)
 
     lib_ms = cuda_time_ms(library, 50)
+    log("K2 joint_topk bf16 split (device ms per call, torch.profiler): "
+        + json.dumps({k: round(v, 4) for k, v in kernel_split(
+            lambda: K.joint_top_k_vocab(xb, wb, bb, ctc, N, log_tw,
+                                        log_cw)).items()}))
     nbytes = (R * D + V * D + V + B * V) * 2 + R * N * 8
     flops = 2 * R * D * V
     bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
@@ -326,9 +368,10 @@ def check_lstm(g):
     from paper_accurate_fast_cheap_tpu_torch.ops import lstm_step as K
 
     R, E, H, O, L = 256, 640, 640, 640, 2
-    x = _randn((R, E), g, E ** -0.5)
-    hs = torch.tanh(_randn((L, R, H), g))
-    cs = _randn((L, R, H), g)
+    x_all = _randn((777, E), g, E ** -0.5)
+    hs_all = torch.tanh(_randn((L, 777, H), g))
+    cs_all = _randn((L, 777, H), g)
+    x, hs, cs = x_all[:R], hs_all[:, :R].contiguous(), cs_all[:, :R].contiguous()
     layers = [(_randn((4 * H, E if i == 0 else H), g, H ** -0.5),
                _randn((4 * H,), g, 0.1), _randn((4 * H, H), g, H ** -0.5))
               for i in range(L)]
@@ -340,18 +383,23 @@ def check_lstm(g):
         # layer's input and `out` are rounded to bf16 (2^-8 relative), so
         # a rounding-order flip moves one ulp: 1e-2 of the output scale.
         cast = [(a.to(dt), b_.to(dt), c.to(dt)) for a, b_, c in layers]
-        args = (x.to(dt), hs, cs, cast, wp.to(dt), bp.to(dt))
-        ko = K.lstm_predictor_step(*args)
-        po = K.lstm_step_plain(*args)
-        err = max(float((a.float() - b_.float()).abs().max())
-                  for a, b_ in zip(ko, po))
-        scale = max(float(b_.float().abs().max()) for b_ in po)
-        lim = tol if dt == torch.float32 else tol * scale
-        ok = err <= lim
-        ok_all = ok_all and ok
-        errs[dt] = err
-        log(f"K3 lstm_step {str(dt)[6:]}: max_abs_err {err:.3e} <= "
-            f"{lim:.3e} {'ok' if ok else 'FAIL'}")
+        for rows in (R, 777):  # the flagship step, a ragged row count
+            args = (x_all[:rows].to(dt), hs_all[:, :rows].contiguous(),
+                    cs_all[:, :rows].contiguous(), cast, wp.to(dt),
+                    bp.to(dt))
+            ko = K.lstm_predictor_step(*args)
+            po = K.lstm_step_plain(*args)
+            err = max(float((a.float() - b_.float()).abs().max())
+                      for a, b_ in zip(ko, po))
+            scale = max(float(b_.float().abs().max()) for b_ in po)
+            lim = tol if dt == torch.float32 else tol * scale
+            ok = err <= lim and all(a.shape == b_.shape
+                                    for a, b_ in zip(ko, po))
+            ok_all = ok_all and ok
+            if rows == R:
+                errs[dt] = err
+            log(f"K3 lstm_step {str(dt)[6:]} (R={rows}): max_abs_err "
+                f"{err:.3e} <= {lim:.3e} {'ok' if ok else 'FAIL'}")
     cast = [(a.bfloat16(), b_.bfloat16(), c.bfloat16()) for a, b_, c in layers]
     args = (x.bfloat16(), hs, cs, cast, wp.bfloat16(), bp.bfloat16())
     ms = cuda_time_ms(lambda: K.lstm_predictor_step(*args), 50)
@@ -368,6 +416,9 @@ def check_lstm(g):
         return torch.nn.functional.linear(y[0], args[4], args[5])
 
     lib_ms = cuda_time_ms(library, 50)
+    log("K3 lstm_step bf16 split (device ms per call, torch.profiler): "
+        + json.dumps({k: round(v, 4) for k, v in kernel_split(
+            lambda: K.lstm_predictor_step(*args)).items()}))
     wbytes = sum(4 * H * ((E if i == 0 else H) + H + 1) for i in range(L))
     nbytes = (wbytes + O * H + O + R * E + R * O) * 2 + 4 * L * R * H * 4
     flops = 2 * R * (sum(4 * H * ((E if i == 0 else H) + H)
@@ -402,17 +453,19 @@ def check_fused_topk(g):
     # a few ulps of O(10) scores: values 1e-6 abs + 1e-6 rel.
     for dt in (torch.float32, torch.bfloat16):
         lp, ctc = logp.to(dt), ctc_full.to(dt)[:, 1]  # strided, as in the beam
-        vk, ik = K.fused_top_k_vocab(lp, ctc, N, log_tw, log_cw)
-        vp, ip = K.fused_top_k_vocab_plain(lp, ctc, N, log_tw, log_cw)
         fused = torch.logaddexp(
             log_tw + lp.float(),
             log_cw + ctc.float().repeat_interleave(N, 0)).reshape(B, N, V)
-        verr, n_mis, ok = _topk_agree(vk, ik, vp, ip, fused, 1e-6)
-        ok_all = ok_all and ok
-        log(f"K4 fused_topk {str(dt)[6:]}: values max_abs_err {verr:.3e} "
-            f"<= 1e-6 (+1e-6 rel), index mismatches {n_mis} (near-ties "
-            f"only) {'ok' if ok else 'FAIL'}")
-        res[dt] = verr
+        for k in (N, 40, 128):  # the beam's k, and beams past 32
+            vk, ik = K.fused_top_k_vocab(lp, ctc, k, log_tw, log_cw)
+            vp, ip = K.fused_top_k_vocab_plain(lp, ctc, k, log_tw, log_cw)
+            verr, n_mis, ok = _topk_agree(vk, ik, vp, ip, fused, 1e-6)
+            ok_all = ok_all and ok
+            log(f"K4 fused_topk {str(dt)[6:]} (k={k}): values max_abs_err "
+                f"{verr:.3e} <= 1e-6 (+1e-6 rel), index mismatches {n_mis} "
+                f"(near-ties only) {'ok' if ok else 'FAIL'}")
+            if k == N:
+                res[dt] = verr
     # exact ties: duplicated logp blocks across chunk boundaries and a
     # uniform CTC row; indices must equal the plain version's exactly
     lt = logp.clone()
@@ -472,7 +525,9 @@ def check_topk(g):
     dead[2, :, 700:] = -float("inf")         # masked vocab tail
     cases = [("scores f32", x, N), ("scores bf16", x.bfloat16(), N),
              ("integer ties", ties, 8), ("-inf rows/tails", dead, 6),
-             ("direct V=600", x[..., :600].contiguous(), N)]
+             ("direct V=600", x[..., :600].contiguous(), N),
+             ("scores f32, beam 40", x, 40), ("scores bf16", x.bfloat16(), 128),
+             ("integer ties", ties, 40), ("-inf rows/tails", dead, 128)]
     ok_all, err = True, 0.0
     # no arithmetic: the kernel selects the plain version's very values,
     # so values and indices must be identical
@@ -629,17 +684,46 @@ def check_ffn(g):
         f"{x_train.shape[0]}) vs autograd through ffn_plain: max rel err "
         f"{gerr:.3e} <= 1e-5 {'ok' if gok else 'FAIL'}")
 
+    # the other widths of the JAX kernel's envelope (multiples of 128):
+    # D = 384 and 640 (two column groups over blocks, each recomputing the
+    # hidden), and D = 256 with H = 1152 (a half slice in the f32 kernel);
+    # the ragged 777 rows, every activation, both dtypes, the same limits
+    for Dw, Hw in ((384, 1536), (640, 2560), (256, 1152)):
+        ww = (_randn((Hw, Dw), g, Dw ** -0.5), _randn((Hw,), g, 0.1),
+              _randn((Dw, Hw), g, Hw ** -0.5), _randn((Dw,), g, 0.1))
+        xw = _randn((777, Dw), g)
+        for act in K.ACTIVATIONS:
+            for dt in (torch.float32, torch.bfloat16):
+                args = (xw.to(dt), *(t.to(dt) for t in ww), act)
+                before = K.fused_ffn.launches
+                yk = K.fused_ffn(*args).float()
+                yp = K.ffn_plain(*args).float()
+                scale = float(yp.abs().max())
+                err = float((yk - yp).abs().max())
+                lim = (1e-5 if dt == torch.float32 else 1e-2) * scale
+                ok = (err <= lim and tuple(yk.shape) == (777, Dw)
+                      and K.fused_ffn.launches == before + 1)
+                ok_all = ok_all and ok
+                log(f"K6 ffn {act} {str(dt)[6:]} (R=777, D={Dw}, H={Hw}): "
+                    f"max_abs_err {err:.3e} <= {lim:.3e} "
+                    f"{'ok' if ok else 'FAIL'}")
+
     x4 = x_rag[:64]
-    ok_all = _refuses("K6 with D = 256", lambda: K.fused_ffn(
-        x4[:, :256], w1[:, :256], b1, w2[:256], b2[:256]),
-        cuda_lib.KernelError) and ok_all
-    ok_all = _refuses("K6 with H = 2000, not a multiple of 256", lambda:
+    ok_all = _refuses("K6 with D = 448, not a multiple of 128", lambda:
+                      K.fused_ffn(_randn((64, 448), g), w1[:, :448], b1,
+                                  w2[:448], b2[:448]),
+                      cuda_lib.KernelError) and ok_all
+    ok_all = _refuses("K6 with D = 768, past 640", lambda:
+                      K.fused_ffn(_randn((64, 768), g), _randn((H, 768), g),
+                                  b1, _randn((768, H), g), _randn((768,), g)),
+                      cuda_lib.KernelError) and ok_all
+    ok_all = _refuses("K6 with H = 2000, not a multiple of 128", lambda:
                       K.fused_ffn(x4, w1[:2000], b1[:2000],
                                   w2[:, :2000], b2),
                       cuda_lib.KernelError) and ok_all
 
-    def times(x, dt):
-        args = (x.to(dt), w1.to(dt), b1.to(dt), w2.to(dt), b2.to(dt))
+    def times(x, dt, weights=(w1, b1, w2, b2)):
+        args = (x.to(dt), *(t.to(dt) for t in weights))
 
         def library():  # yardstick only: two cuBLAS products
             return F.linear(F.silu(F.linear(args[0], args[1], args[2])),
@@ -649,17 +733,23 @@ def check_ffn(g):
         dev = device_ms(lambda: K.fused_ffn(*args), 10)
         plain_ms = cuda_time_ms(lambda: K.ffn_plain(*args), 10)
         lib_ms = cuda_time_ms(library, 10)
-        R, size = x.shape[0], x.element_size()
-        nbytes = (2 * R * D + 2 * D * H + H + D) * size
-        bms, by = bound_ms(nbytes, 4 * R * D * H,
+        (R, Dx), Hx, size = x.shape, weights[0].shape[0], x.element_size()
+        nbytes = (2 * R * Dx + 2 * Dx * Hx + Hx + Dx) * size
+        bms, by = bound_ms(nbytes, 4 * R * Dx * Hx,
                            PEAK_F32_FLOPS if dt == torch.float32
                            else PEAK_BF16_FLOPS)
-        log(f"K6 ffn {str(dt)[6:]} ({R}x{D}->{H}->{D}, swish): kernel "
+        log(f"K6 ffn {str(dt)[6:]} ({R}x{Dx}->{Hx}->{Dx}, swish): kernel "
             f"{ms:.4f} ms (device {dev:.4f}), plain {plain_ms:.4f} ms, "
             f"library {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
         return ms, dev, plain_ms, lib_ms, bms, by
 
     times(x_dec, torch.bfloat16)
+    # D = 640: its two column groups each recompute the hidden
+    w640 = (_randn((2560, 640), g, 640 ** -0.5), _randn((2560,), g, 0.1),
+            _randn((640, 2560), g, 2560 ** -0.5), _randn((640,), g, 0.1))
+    times(_randn((x_dec.shape[0], 640), g), torch.bfloat16, w640)
+    times(_randn((x_train.shape[0], 640), g), torch.float32, w640)
+    del w640
     ms, dev, plain_ms, lib_ms, bms, by = times(x_train, torch.float32)
     return dict(name="ffn", max_abs_err=errs[x_train.shape[0], "swish",
                                              torch.float32],
@@ -1043,6 +1133,19 @@ def phase_main(model, rng, batch):
         + f"; beam per frame {stages['beam'] / frames * 1e3:.4f} ms")
     log(f"launch counters {json.dumps(counts)}, expected {json.dumps(want)}; "
         f"shapes {shape_ok}, finite {finite}, token ids in range {ids_ok}")
+    # the beam's device time per frame by kernel, over its first 200 frames
+    # (outside the counted run): what the card is busy with while the host
+    # enqueues the frame's bookkeeping
+    cut = 200
+    cut_lens = torch.full((batch,), cut, dtype=torch.int64, device="cuda")
+    split = kernel_split(lambda: beam(model, enc[:, :cut], cut_lens,
+                                      logp[:, :cut]), calls=1)
+    busy = sum(split.values()) / cut
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:8]
+    log(f"beam per frame (first {cut} frames, torch.profiler): device busy "
+        f"{busy:.4f} ms of {stages['beam'] / frames * 1e3:.4f} ms wall; "
+        "top kernels (ms per frame) " + json.dumps(
+            {k: round(v / cut, 4) for k, v in top}))
     ok = (counts == want and shape_ok and finite and ids_ok and ntok > 0
           and frames == CLI_FRAMES)
     return ok, counts
@@ -1189,6 +1292,64 @@ def _cli_run(recognize_wav, paths, name, route, card, align_s):
         for ln in f.read().splitlines():
             log(f"CLI {name} .rtf [{card}]: {ln}")
     return good, counts
+
+
+BEAM_WIDE = 40  # past the 32 the port's selection once capped k at
+
+
+def phase_beam40(paths, rng):
+    """recognize_wav at beam 40 on a 2-window WAV (2 x 90 s) of the
+    standard flagship in f32, through the CLI's own route (pallas_joint:
+    K2 at k = 40, the block selection) and through the xla route (K5),
+    each with the counters zeroed just before and read just after: the
+    TXT files byte for byte.  Returns ok."""
+    import functools
+
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import recognize_wav
+    from paper_accurate_fast_cheap_tpu_torch.decode import rnnt_search
+
+    d = os.path.dirname(paths["wav"])
+    n = (2 * CLI_CHUNK - 1) * 160 + 400
+    wav = os.path.join(d, "two.wav")
+    _write_wav(wav, np.clip(rng.randn(n) * 0.1 * 32768, -32768,
+                            32767).astype(np.int16))
+    search = rnnt_search.rnnt_beam_search
+    texts, ok = {}, True
+    for route, kernel in (("pallas_joint", "joint_topk"), ("xla", "topk")):
+        out = os.path.join(d, f"out_beam40_{route}")
+        rnnt_search.rnnt_beam_search = functools.partial(search,
+                                                         topk_impl=route)
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            rc = recognize_wav.main([
+                "--config", paths["standard.json"],
+                "--checkpoint", paths["standard.pt"], "--wav", wav,
+                "--output_dir", out, "--mode", "rnnt_beam_search",
+                "--batch_size", "2", "--chunk_size", str(CLI_CHUNK),
+                "--beam_size", str(BEAM_WIDE), "--precision", "fp32"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            rnnt_search.rnnt_beam_search = search
+        with open(os.path.join(out, "two.txt"), "rb") as f:
+            texts[route] = f.read()
+        want = dict.fromkeys(counts, 0)
+        want.update({"wkv6_fwd": 24, "lstm_step": CLI_FRAMES + 1,
+                     kernel: CLI_FRAMES})
+        good = rc == 0 and counts == want and len(texts[route].split()) > 0
+        ok = ok and good
+        log(f"beam {BEAM_WIDE} CLI ({route}, 2 x 90 s, f32): "
+            f"{wall:.2f} s, launch counters {json.dumps(counts)}, expected "
+            f"{json.dumps(want)}, TXT {len(texts[route].split())} words "
+            f"{'ok' if good else 'FAIL'}")
+    same = texts["pallas_joint"] == texts["xla"]
+    log(f"beam {BEAM_WIDE} CLI: pallas_joint and xla TXT identical {same} "
+        f"{'ok' if same else 'FAIL'}")
+    return ok and same
 
 
 # The training geometry of bin/train_bench.py's defaults: 16 utterances of
@@ -1858,7 +2019,7 @@ def main() -> int:
         ok = ok and good
     failed = [] if ok else ["kernels vs plain"]
     if not tensor_cores:
-        failed.append("no HGMMA in the bf16 K6/K7 libraries")
+        failed.append("no HGMMA in the bf16 K2/K3/K6/K7 libraries")
     if not check_wkv_backward(g):
         failed.append("K1 backward vs autograd")
     if args.kernels_only:
@@ -1888,6 +2049,8 @@ def main() -> int:
         cli_ok, hat_counts = phase_cli(paths, card)
         if not cli_ok:
             failed.append("recognize_wav CLI")
+        if not phase_beam40(paths, rng):
+            failed.append(f"recognize_wav at beam {BEAM_WIDE}")
         tool_ok, k7_launches = phase_tool()
         if not tool_ok:
             failed.append("crash-repro tool cases")

@@ -15,21 +15,28 @@
 // so the tensor-core rate bounds it (0.305 ms); at the training shape
 // (R = 16 x 374, f32) the CUDA-core f32 rate does (0.37 ms).
 //
-// In both kernels a block owns a band of rows and all D = 512 output
-// columns, keeps its f32 y accumulator in registers and walks H in slices:
+// In both kernels a block owns a band of rows and a group of y's columns
+// (all D of them for D <= 512; two groups at D = 640, each group
+// recomputing the whole hidden for its rows, so the first product is done
+// twice there), keeps its f32 y accumulator in registers and walks H in slices:
 // h = act(x_band @ W1[slice]^T + b1[slice]) goes to a small shared tile,
 // y_band += h @ W2[:, slice]^T.  The (R, H) hidden is never written to
 // global memory: only x is read and y written per row.
 //
 // bf16 (ffn_tc_kernel: wgmma over TMA-fed tiles, sm90.cuh).  A block owns 64
-// rows; TMA loads its x band (64 x 512, 64 KB) once.  One producer thread
-// streams, per 64-wide H slice, four 32 KB tiles through a 4-stage ring
-// with full/empty mbarriers: W1's 64 slice rows as two 256-wide K halves
-// (stages 0, 1), W2's slice columns for y columns 0-255 and 256-511
-// (stages 2, 3), in the order the consumers use them.  Two consumer
-// warpgroups each own 256 of y's columns (128 accumulator registers a
-// thread; one warpgroup would need 256).  Each computes half of the hidden
-// slice (32 m64n32k16 over K = 512), adds the bias (prefetched a slice
+// rows; TMA loads its x band (64 x D, 64 KB at D = 512) once.  One producer
+// thread streams, per 64-wide H slice, three tiles through a 3-stage ring
+// with full/empty mbarriers: W1's 64 slice rows (stage 0, D / 64 boxes),
+// W2's slice columns for each warpgroup's y columns (stages 1, 2), in the
+// order the consumers use them.  Two consumer warpgroups each own 256 of
+// the block's 512 y columns (128 accumulator registers a thread; one
+// warpgroup would need 256); a D below 512 leaves the columns past D
+// unstored (ptxas 12.9 crashes on this kernel with any second-product
+// width but 256).  At D = 640 x's band, W1's rows and the W2 tiles exceed
+// the shared memory, so one region takes W1 and then the W2 tiles of each
+// slice in turn and the products wait for their loads (the serial form,
+// two 512-column groups).  Each computes half of the hidden
+// slice (D / 16 m64n32k16 over K = D), adds the bias (prefetched a slice
 // ahead), applies the activation with the fast intrinsics (the hidden is
 // rounded to bf16 right after) and writes h into a 128-byte-swizzled
 // shared tile, double-buffered; a named barrier joins the warpgroups, and
@@ -38,11 +45,12 @@
 // activation overlaps the second product; the loop body has no branch (a
 // branch there makes ptxas serialize every wgmma).  Rows past R load as
 // zeros (TMA) and are not stored.  What bounds it: the first product is
-// a chain of 32 dependent n32 wgmmas per warpgroup and slice (latency, not
-// rate), and the ring holds one slice only (x, the ring and h fill the
-// shared memory), so W loads are issued about one slice ahead.  Per block:
-// 384 threads (setmaxnreg 232 / 40), 214,088 bytes of dynamic shared
-// memory; ptxas (CUDA 12.9) caps the kernel at 168 registers a thread,
+// a chain of 32 dependent n32 wgmmas per warpgroup and slice at D = 512
+// (latency, not rate), and the ring holds one slice only (x, the ring and
+// h fill the shared memory), so W loads are issued about one slice ahead.
+// Per block: 384 threads (setmaxnreg 232 / 40), 214,072 bytes of dynamic
+// shared memory at D = 512; ptxas (CUDA 12.9) caps the kernel at 168
+// registers a thread,
 // spills 128 bytes and notes C7512 (wgmmas serialized for want of
 // registers).  A second accumulator chain for the first product spills
 // more at that cap, and lifting the cap (no launch bounds, or
@@ -62,18 +70,21 @@
 // 48 rows (ceil(5984 / 48) = 125 blocks fill the 132 SMs in one wave at
 // the training shape); x's band is staged in shared memory once
 // (cp.async, zero past R); the weights stream in 16-byte cp.async copies
-// through a double-buffered stage: per 256-wide H slice, sixteen W1 chunks
-// (256 rows x 32 k) then sixteen W2 chunks (512 rows x 16 k).  Rows are
+// through a double-buffered stage: per H slice (256 wide, or 128 where H
+// is an odd multiple of 128 or D = 640), D / 32 W1 chunks (slice rows x 32
+// k) then the W2 chunks (the group's y rows x 16 k).  Rows are
 // padded to 4 mod 32 floats, so each fragment load hits 32 banks.  Warp w
-// owns 32 of the hidden slice's columns and 64 of y's, for all 48 rows
-// (48 + 96 accumulator registers).  230,912 bytes of dynamic shared
-// memory; ptxas: 255 registers, 4 bytes of spill for swish.  A
-// register-blocked CUDA-core version (12 x 8 tiles) ran slower.
+// owns an eighth of the hidden slice's columns and of the group's y
+// columns, for all 48 rows (48 + 96 accumulator registers at D = 512).
+// 230,912 bytes of dynamic shared memory at D = 512; ptxas: 255
+// registers, 4 bytes of spill for swish.  A register-blocked CUDA-core
+// version (12 x 8 tiles) ran slower.
 //
 // Limits (the C entry returns cudaErrorInvalidValue otherwise, and
-// ops/ffn.py raises a KernelError first): D = 512 and H a multiple of
-// 256 (every model config of the repo has 512 / 2048); pointers 16-byte
-// aligned.
+// ops/ffn.py raises a KernelError first): D in 128, 256, 384, 512, 640 and
+// H a positive multiple of 128 (every model config of the repo has 512 /
+// 2048); pointers 16-byte aligned.  Past D = 640 x's resident band and the
+// weight tiles no longer fit a block's 227 KB of shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,8 +95,8 @@ namespace {
 
 using namespace pafc::sm90;
 
-constexpr int kD = 512;     // the model width both kernels take
-constexpr int kHStep = 256; // H must be a multiple of this
+constexpr int kStep = 128;   // D and H are multiples of this
+constexpr int kDMax = 640;   // x's band and the rings fill the shared memory
 
 template <int ACT>
 __device__ __forceinline__ float act(float v) {
@@ -116,35 +127,57 @@ __device__ __forceinline__ float act_fast(float v) {
 
 namespace tc {
 
-constexpr int BM = 64, HS = 64, kStages = 4;
+constexpr int BM = 64, HS = 64, kStages = 3;
 constexpr int kThreads = 3 * 128;            // two consumer warpgroups, one producer
 constexpr int kBox = 64 * 64 * 2;            // 8 KB: 64 rows x 64 k
-constexpr int kXBytes = (kD / 64) * kBox;    // 64 KB: the block's x band
-constexpr int kStage = 32768;                // one ring tile
 constexpr int kHBytes = BM * HS * 2;         // 8 KB: one hidden slice
-constexpr size_t kSmem =
-    kXBytes + kStages * kStage + 2 * kHBytes + 1024 + (1 + 2 * kStages) * sizeof(uint64_t);
-static_assert(kHStep % HS == 0, "H splits into whole slices");
+static_assert(kStep % HS == 0, "H splits into whole slices");
+
+// Each warpgroup owns NW = 256 of y's columns, a block a group of 512
+// (ptxas 12.9 crashes on this kernel with any other second-product width,
+// so a narrower D masks the columns past it).  KD = D is x's band and the
+// first product's K.  Ring stage 0 holds the slice's W1 rows (KD / 64
+// boxes), stages 1 and 2 the two warpgroups' W2 tiles (256 rows x 64 k).
+// Past D = 512 those three and x's band overflow the shared memory: the
+// serial form keeps one region, which takes W1 and the W2 tiles in turn.
+constexpr int NW = 256;
+template <int KD>
+struct Shape {
+  static constexpr bool kSerial = KD > 512;
+  static constexpr int kGroups = (KD + 2 * NW - 1) / (2 * NW);  // y column groups
+  static constexpr int kXBytes = KD * 128;   // the block's x band (64 KB at D = 512)
+  static constexpr int kW1Bytes = KD * 128;  // one slice's W1 rows
+  static constexpr int kW2Bytes = NW * 128;  // one warpgroup's W2 tile
+  static constexpr int kW2Offset = kSerial ? 0 : kW1Bytes;  // W2 tiles in the ring
+  static constexpr int kRingBytes =
+      kSerial ? (kW1Bytes > 2 * kW2Bytes ? kW1Bytes : 2 * kW2Bytes) : kW1Bytes + 2 * kW2Bytes;
+  static constexpr size_t kSmem =
+      kXBytes + kRingBytes + 2 * kHBytes + 1024 + (1 + 2 * kStages) * sizeof(uint64_t);
+  static_assert(kSmem <= 232448, "fits a block's shared memory");
+};
 
 // the slice's hidden columns wg * 32 .. + 32 over K = D: A is the x band
-// (eight 64-wide boxes), B the two W1 ring tiles (stages 0 and 1, four
-// 64-row boxes each; this warpgroup reads rows wg * 32 .. + 32 of each)
+// (KD / 64 boxes of 64 k), B the slice's W1 rows (ring stage 0, as many
+// 64-row boxes; this warpgroup reads rows wg * 32 .. + 32 of each)
+template <int KD>
 __device__ __forceinline__ void first_product(float (&hacc)[16], const uint8_t* xs,
                                               const uint8_t* ring, int wg) {
   const uint32_t xa = opaque_smem(xs), wa = opaque_smem(ring + wg * 4096);
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
+  for (int kk = 0; kk < KD / 16; ++kk) {
     const uint32_t a = xa + (kk / 4) * kBox + (kk % 4) * 32;
-    const uint32_t b = wa + (kk / 16) * kStage + ((kk % 16) / 4) * kBox + (kk % 4) * 32;
+    const uint32_t b = wa + (kk / 4) * kBox + (kk % 4) * 32;
     wgmma_m64n32k16<0>(hacc, desc_kmajor(a), desc_kmajor(b), kk > 0);
   }
 }
 
-// y's columns wg * 256 .. + 256 += h (64 x 64, the slice) @ the W2 tile of
-// those columns (ring stage 2 + wg)
+// this warpgroup's 256 columns of y += h (64 x 64, the slice) @ their W2
+// tile (ring stage 1 + wg)
+template <int KD>
 __device__ __forceinline__ void second_product(float (&yacc)[128], const uint8_t* hb,
                                                const uint8_t* ring, int wg) {
-  const uint32_t ha = opaque_smem(hb), wa = opaque_smem(ring + (2 + wg) * kStage);
+  const uint32_t ha = opaque_smem(hb);
+  const uint32_t wa = opaque_smem(ring + Shape<KD>::kW2Offset + wg * Shape<KD>::kW2Bytes);
   fence_regs(yacc);
   wgmma_fence();
 #pragma unroll
@@ -184,22 +217,24 @@ __device__ __forceinline__ void store_hidden(const float (&hacc)[16], uint8_t* h
   }
 }
 
-template <int ACT>
+template <int ACT, int KD>
 __global__ void __launch_bounds__(kThreads, 1)
     ffn_tc_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ CUtensorMap w1map,
                   const __grid_constant__ CUtensorMap w2map, int R, int H,
                   const __nv_bfloat16* __restrict__ b1, const __nv_bfloat16* __restrict__ b2,
                   __nv_bfloat16* __restrict__ y) {
+  using Sh = Shape<KD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* xs = align_1024(smem_raw);
-  uint8_t* ring = xs + kXBytes;
-  uint8_t* hs = ring + kStages * kStage;
+  uint8_t* ring = xs + Sh::kXBytes;
+  uint8_t* hs = ring + Sh::kRingBytes;
   uint64_t* xfull = reinterpret_cast<uint64_t*>(hs + 2 * kHBytes);
   uint64_t* full = xfull + 1;
   uint64_t* empty = full + kStages;
   const int n_slices = H / HS;
   const int m0 = blockIdx.x * BM;
+  const int y0 = Sh::kGroups > 1 ? blockIdx.y * 2 * NW : 0;  // this block's y columns
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -215,105 +250,144 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 2) {  // producer warpgroup: one thread issues the TMA
     setmaxnreg_dec<40>();
     if (threadIdx.x == 2 * 128) {
-      mbar_arrive_expect_tx(xfull, kXBytes);
-      for (int k = 0; k < kD / 64; ++k) tma_load_2d(xs + k * kBox, &xmap, xfull, k * 64, m0);
-      // stage s of slice j: 0, 1 = W1 rows j*HS.. (K halves), 2, 3 = W2
-      // rows 0-255 / 256-511 at columns j*HS..; loaded in the consumers'
-      // order: W1 of slice 0, then W1 of slice j + 1 before W2 of slice j
-      for (int j = -1; j < n_slices; ++j) {
+      mbar_arrive_expect_tx(xfull, Sh::kXBytes);
+      for (int k = 0; k < KD / 64; ++k) tma_load_2d(xs + k * kBox, &xmap, xfull, k * 64, m0);
+      if constexpr (Sh::kSerial) {
+        // one region: W1 of slice j (use 2j), then both W2 tiles (2j + 1)
+        for (int t = 0; t < 2 * n_slices; ++t) {
+          const int slice = t / 2;
+          mbar_wait(&empty[0], (t & 1) ^ 1);
+          if (t % 2 == 0) {
+            mbar_arrive_expect_tx(&full[0], Sh::kW1Bytes);
+            for (int q = 0; q < KD / 64; ++q)
+              tma_load_2d(ring + q * kBox, &w1map, &full[0], q * 64, slice * HS);
+          } else {
+            mbar_arrive_expect_tx(&full[0], 2 * Sh::kW2Bytes);
+            for (int g = 0; g < 2; ++g)
+              tma_load_2d(ring + g * Sh::kW2Bytes, &w2map, &full[0], slice * HS, y0 + g * NW);
+          }
+        }
+      }
+      // stage s of slice j: 0 = W1 rows j*HS.., 1, 2 = W2 rows y0 + (s-1)*NW
+      // .. + NW at columns j*HS..; loaded in the consumers' order: W1 of
+      // slice 0, then W1 of slice j + 1 before W2 of slice j
+      for (int j = -1; j < n_slices && !Sh::kSerial; ++j) {
         for (int s = 0; s < kStages; ++s) {
-          const int slice = s < 2 ? j + 1 : j;
+          const int slice = s == 0 ? j + 1 : j;
           if (slice < 0 || slice >= n_slices) continue;
           mbar_wait(&empty[s], (slice & 1) ^ 1);
-          uint8_t* dst = ring + s * kStage;
-          mbar_arrive_expect_tx(&full[s], kStage);
-          if (s < 2) {
-            for (int q = 0; q < 4; ++q)
-              tma_load_2d(dst + q * kBox, &w1map, &full[s], (s * 4 + q) * 64, slice * HS);
+          if (s == 0) {
+            mbar_arrive_expect_tx(&full[0], Sh::kW1Bytes);
+            for (int q = 0; q < KD / 64; ++q)
+              tma_load_2d(ring + q * kBox, &w1map, &full[0], q * 64, slice * HS);
           } else {
-            tma_load_2d(dst, &w2map, &full[s], slice * HS, (s - 2) * 256);
+            mbar_arrive_expect_tx(&full[s], Sh::kW2Bytes);
+            tma_load_2d(ring + Sh::kW1Bytes + (s - 1) * Sh::kW2Bytes, &w2map, &full[s],
+                        slice * HS, y0 + (s - 1) * NW);
           }
         }
       }
     }
-  } else {  // consumer warpgroups: y columns wg * 256 .. + 256
+  } else {  // consumer warpgroups: y columns y0 + wg * NW .. + NW
     setmaxnreg_inc<232>();
-    float yacc[128];
+    float yacc[NW / 2];
 #pragma unroll
-    for (int i = 0; i < 128; ++i) yacc[i] = 0.f;
+    for (int i = 0; i < NW / 2; ++i) yacc[i] = 0.f;
     float hacc[16];
 #pragma unroll
     for (int i = 0; i < 16; ++i) hacc[i] = 0.f;
     __nv_bfloat162 bias[4];
     load_bias(bias, b1, 0, wg);
     mbar_wait(xfull, 0);
-    mbar_wait(&full[0], 0);
-    mbar_wait(&full[1], 0);
-    fence_regs(hacc);
-    wgmma_fence();
-    first_product(hacc, xs, ring, wg);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(hacc);
-    mbar_arrive(&empty[0]);
-    mbar_arrive(&empty[1]);
-    store_hidden<ACT>(hacc, hs, bias, wg);
-    fence_proxy_async();
-    named_barrier(1, 2 * 128);
-    // Slice j: the first product of slice j + 1 is issued ahead of the
-    // second product of slice j, so its activation runs while the tensor
-    // cores work on the second product.  The named barrier at the end
-    // orders both warpgroups' writes of h(j + 1) before its reads, and
-    // both warpgroups' reads of h(j) (their second products are waited
-    // for) before its buffer is written again in slice j + 1.  The loop
-    // body has no branch, so ptxas can count the wgmma groups in flight
-    // (a branch there makes it serialize every wgmma); the last slice is
-    // peeled.
-    for (int j = 0; j + 1 < n_slices; ++j) {
-      load_bias(bias, b1, (j + 1) * HS, wg);
-      mbar_wait(&full[0], (j + 1) & 1);
-      mbar_wait(&full[1], (j + 1) & 1);
+    if constexpr (Sh::kSerial) {
+      // slice by slice: W1's and W2's loads wait for the products before
+      for (int j = 0; j < n_slices; ++j) {
+        mbar_wait(&full[0], 0);
+        fence_regs(hacc);
+        wgmma_fence();
+        first_product<KD>(hacc, xs, ring, wg);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(hacc);
+        mbar_arrive(&empty[0]);
+        store_hidden<ACT>(hacc, hs, bias, wg);
+        fence_proxy_async();
+        named_barrier(1, 2 * 128);
+        if (j + 1 < n_slices) load_bias(bias, b1, (j + 1) * HS, wg);
+        mbar_wait(&full[0], 1);
+        second_product<KD>(yacc, hs, ring, wg);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(yacc);
+        mbar_arrive(&empty[0]);
+        named_barrier(1, 2 * 128);  // h is read by both before its next write
+      }
+    } else {
+      mbar_wait(&full[0], 0);
       fence_regs(hacc);
       wgmma_fence();
-      first_product(hacc, xs, ring, wg);
+      first_product<KD>(hacc, xs, ring, wg);
       wgmma_commit();
-      // both warpgroups wait on (and release) both W2 tiles, so every
-      // stage's empty barrier counts the same arrivals per phase
-      mbar_wait(&full[2], j & 1);
-      mbar_wait(&full[3], j & 1);
-      second_product(yacc, hs + (j & 1) * kHBytes, ring, wg);
-      wgmma_commit();
-      wgmma_wait<1>();  // slice j + 1's first product is done
+      wgmma_wait<0>();
       fence_regs(hacc);
       mbar_arrive(&empty[0]);
-      mbar_arrive(&empty[1]);
-      store_hidden<ACT>(hacc, hs + ((j + 1) & 1) * kHBytes, bias, wg);
+      store_hidden<ACT>(hacc, hs, bias, wg);
       fence_proxy_async();
-      wgmma_wait<0>();  // slice j's second product is done
-      fence_regs(yacc);
-      mbar_arrive(&empty[2]);
-      mbar_arrive(&empty[3]);
       named_barrier(1, 2 * 128);
+      // Slice j: the first product of slice j + 1 is issued ahead of the
+      // second product of slice j, so its activation runs while the tensor
+      // cores work on the second product.  The named barrier at the end
+      // orders both warpgroups' writes of h(j + 1) before its reads, and
+      // both warpgroups' reads of h(j) (their second products are waited
+      // for) before its buffer is written again in slice j + 1.  The loop
+      // body has no branch, so ptxas can count the wgmma groups in flight
+      // (a branch there makes it serialize every wgmma); the last slice is
+      // peeled.
+      for (int j = 0; j + 1 < n_slices; ++j) {
+        load_bias(bias, b1, (j + 1) * HS, wg);
+        mbar_wait(&full[0], (j + 1) & 1);
+        fence_regs(hacc);
+        wgmma_fence();
+        first_product<KD>(hacc, xs, ring, wg);
+        wgmma_commit();
+        // both warpgroups wait on (and release) both W2 tiles, so every
+        // stage's empty barrier counts the same arrivals per phase
+        mbar_wait(&full[1], j & 1);
+        mbar_wait(&full[2], j & 1);
+        second_product<KD>(yacc, hs + (j & 1) * kHBytes, ring, wg);
+        wgmma_commit();
+        wgmma_wait<1>();  // slice j + 1's first product is done
+        fence_regs(hacc);
+        mbar_arrive(&empty[0]);
+        store_hidden<ACT>(hacc, hs + ((j + 1) & 1) * kHBytes, bias, wg);
+        fence_proxy_async();
+        wgmma_wait<0>();  // slice j's second product is done
+        fence_regs(yacc);
+        mbar_arrive(&empty[1]);
+        mbar_arrive(&empty[2]);
+        named_barrier(1, 2 * 128);
+      }
+      const int last = n_slices - 1;
+      mbar_wait(&full[1], last & 1);
+      mbar_wait(&full[2], last & 1);
+      second_product<KD>(yacc, hs + (last & 1) * kHBytes, ring, wg);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(yacc);
     }
-    const int last = n_slices - 1;
-    mbar_wait(&full[2], last & 1);
-    mbar_wait(&full[3], last & 1);
-    second_product(yacc, hs + (last & 1) * kHBytes, ring, wg);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(yacc);
 
     const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
     const int r = m0 + warp * 16 + lane / 4;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = wg * 256 + j * 8 + (lane % 4) * 2;
+    for (int j = 0; j < NW / 8; ++j) {
+      const int c = y0 + wg * NW + j * 8 + (lane % 4) * 2;
+      if (KD % (2 * NW) && c >= KD) continue;  // the masked columns past D
       const float bb0 = __bfloat162float(b2[c]), bb1 = __bfloat162float(b2[c + 1]);
       if (r < R)
-        *reinterpret_cast<__nv_bfloat162*>(y + (long long)r * kD + c) =
+        *reinterpret_cast<__nv_bfloat162*>(y + (long long)r * KD + c) =
             __floats2bfloat162_rn(yacc[4 * j] + bb0, yacc[4 * j + 1] + bb1);
       if (r + 8 < R)
-        *reinterpret_cast<__nv_bfloat162*>(y + (long long)(r + 8) * kD + c) =
+        *reinterpret_cast<__nv_bfloat162*>(y + (long long)(r + 8) * KD + c) =
             __floats2bfloat162_rn(yacc[4 * j + 2] + bb0, yacc[4 * j + 3] + bb1);
     }
   }
@@ -325,21 +399,29 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 namespace f32 {
 
-constexpr int BM = 48, HS = 256, kThreads = 256;
+constexpr int BM = 48, kThreads = 256;
 constexpr int K1 = 32, W1LD = K1 + 4;           // W1 chunk: HS rows x 32 k
-constexpr int K2 = 16, W2LD = K2 + 4;           // W2 chunk: kD rows x 16 k
-constexpr int kChunks1 = kD / K1, kChunks2 = HS / K2;
-constexpr int kChunks = kChunks1 + kChunks2;    // per H slice
-constexpr int kStageFloats = HS * W1LD > kD * W2LD ? HS * W1LD : kD * W2LD;
-// every row padded to 4 mod 32 floats: the 32 lanes of a fragment load (row
-// g, column t; g = lane / 4, t = lane % 4) fall on 32 distinct banks
-constexpr int XLD = kD + 4, HLD = HS + 4;
-constexpr size_t kSmem = (size_t)(BM * XLD + BM * HLD + 2 * kStageFloats) * sizeof(float);
+constexpr int K2 = 16, W2LD = K2 + 4;           // W2 chunk: NY rows x 16 k
 constexpr int RT = BM / 16;        // m16 row tiles: every warp covers all rows
-constexpr int NT1 = HS / 8 / 8;    // n8 tiles of the hidden slice per warp
-constexpr int NT2 = kD / 8 / 8;    // n8 tiles of y per warp
-static_assert(kHStep % HS == 0, "H splits into whole slices");
 static_assert(kThreads == 8 * 32, "8 warps split the columns");
+
+// The widths of one instance: KD = D; a block owns NY of y's columns; the
+// hidden is walked in slices of HS (256, or 128 where H is an odd multiple
+// of 128 or D = 640).
+template <int KD, int NY, int HS>
+struct Shape {
+  static constexpr int kChunks1 = KD / K1, kChunks2 = HS / K2;
+  static constexpr int kChunks = kChunks1 + kChunks2;  // per H slice
+  static constexpr int kStageFloats = HS * W1LD > NY * W2LD ? HS * W1LD : NY * W2LD;
+  // every row padded to 4 mod 32 floats: the 32 lanes of a fragment load
+  // (row g, column t; g = lane / 4, t = lane % 4) fall on 32 distinct banks
+  static constexpr int XLD = KD + 4, HLD = HS + 4;
+  static constexpr size_t kSmem = (size_t)(BM * XLD + BM * HLD + 2 * kStageFloats) * sizeof(float);
+  static constexpr int NT1 = HS / 8 / 8;  // n8 tiles of the hidden slice per warp
+  static constexpr int NT2 = NY / 8 / 8;  // n8 tiles of y per warp
+  static_assert(kSmem <= 232448, "fits a block's shared memory");
+  static_assert(NY % 64 == 0 && HS % 64 == 0, "8 warps split the columns");
+};
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
@@ -357,22 +439,24 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // chunk q of the block's weight stream into a stage
+template <int KD, int NY, int HS>
 __device__ __forceinline__ void load_chunk(float* st, int q, const float* __restrict__ w1,
-                                           const float* __restrict__ w2, int H) {
-  const int j = q / kChunks, c = q % kChunks;
-  if (c < kChunks1) {  // W1 rows j * HS .. + HS, k c * K1 .. + K1
+                                           const float* __restrict__ w2, int H, int y0) {
+  using Sh = Shape<KD, NY, HS>;
+  const int j = q / Sh::kChunks, c = q % Sh::kChunks;
+  if (c < Sh::kChunks1) {  // W1 rows j * HS .. + HS, k c * K1 .. + K1
 #pragma unroll
     for (int e = threadIdx.x; e < HS * K1 / 4; e += kThreads) {
       const int row = e / (K1 / 4), c4 = e % (K1 / 4);
-      cp_async16(st + row * W1LD + c4 * 4, w1 + (size_t)(j * HS + row) * kD + c * K1 + c4 * 4,
+      cp_async16(st + row * W1LD + c4 * 4, w1 + (size_t)(j * HS + row) * KD + c * K1 + c4 * 4,
                  true);
     }
-  } else {  // W2 rows 0 .. kD, k j * HS + (c - kChunks1) * K2 .. + K2
-    const int k0 = j * HS + (c - kChunks1) * K2;
+  } else {  // W2 rows y0 .. y0 + NY, k j * HS + (c - kChunks1) * K2 .. + K2
+    const int k0 = j * HS + (c - Sh::kChunks1) * K2;
 #pragma unroll
-    for (int e = threadIdx.x; e < kD * K2 / 4; e += kThreads) {
+    for (int e = threadIdx.x; e < NY * K2 / 4; e += kThreads) {
       const int row = e / (K2 / 4), c4 = e % (K2 / 4);
-      cp_async16(st + row * W2LD + c4 * 4, w2 + (size_t)row * H + k0 + c4 * 4, true);
+      cp_async16(st + row * W2LD + c4 * 4, w2 + (size_t)(y0 + row) * H + k0 + c4 * 4, true);
     }
   }
 }
@@ -432,24 +516,28 @@ __device__ __forceinline__ void step(float (&acc)[RT][NT][4], const float* a, in
   }
 }
 
-template <int ACT>
+template <int ACT, int KD, int NY, int HS>
 __global__ void __launch_bounds__(kThreads, 1)
     ffn_f32_kernel(int R, int H, const float* __restrict__ x, const float* __restrict__ w1,
                    const float* __restrict__ b1, const float* __restrict__ w2,
                    const float* __restrict__ b2, float* __restrict__ y) {
+  using Sh = Shape<KD, NY, HS>;
+  constexpr int XLD = Sh::XLD, HLD = Sh::HLD, NT1 = Sh::NT1, NT2 = Sh::NT2;
+  constexpr int kChunks1 = Sh::kChunks1, kStageFloats = Sh::kStageFloats;
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);
   float* hs = xs + BM * XLD;
   float* ws = hs + BM * HLD;
   const int m0 = blockIdx.x * BM;
+  const int y0 = KD > NY ? blockIdx.y * NY : 0;  // this block's group of y's columns
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 
-  for (int e = threadIdx.x; e < BM * kD / 4; e += kThreads) {
-    const int row = e / (kD / 4), c4 = e % (kD / 4), r = m0 + row;
-    cp_async16(xs + row * XLD + c4 * 4, x + (size_t)min(r, R - 1) * kD + c4 * 4, r < R);
+  for (int e = threadIdx.x; e < BM * KD / 4; e += kThreads) {
+    const int row = e / (KD / 4), c4 = e % (KD / 4), r = m0 + row;
+    cp_async16(xs + row * XLD + c4 * 4, x + (size_t)min(r, R - 1) * KD + c4 * 4, r < R);
   }
-  const int n_chunks = (H / HS) * kChunks;
-  load_chunk(ws, 0, w1, w2, H);
+  const int n_chunks = H / HS * Sh::kChunks;
+  load_chunk<KD, NY, HS>(ws, 0, w1, w2, H, y0);
   cp_async_commit();
 
   // warp w: the hidden slice's columns w * 32 .. + 32 and y's columns
@@ -469,7 +557,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int q = 0; q < n_chunks; ++q) {
     if (q + 1 < n_chunks) {
-      load_chunk(ws + ((q + 1) & 1) * kStageFloats, q + 1, w1, w2, H);
+      load_chunk<KD, NY, HS>(ws + ((q + 1) & 1) * kStageFloats, q + 1, w1, w2, H, y0);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -477,7 +565,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
     const float* st = ws + (q & 1) * kStageFloats;
-    const int j = q / kChunks, c = q % kChunks;
+    const int j = q / Sh::kChunks, c = q % Sh::kChunks;
     if (c < kChunks1) {  // hidden slice += x[:, chunk] @ W1 chunk^T
       if (c == 0) {
 #pragma unroll
@@ -519,8 +607,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (r < R) {
 #pragma unroll
         for (int nt = 0; nt < NT2; ++nt) {
-          const int col = warp * NT2 * 8 + nt * 8 + 2 * t;
-          *reinterpret_cast<float2*>(y + (size_t)r * kD + col) =
+          const int col = y0 + warp * NT2 * 8 + nt * 8 + 2 * t;
+          *reinterpret_cast<float2*>(y + (size_t)r * KD + col) =
               make_float2(yacc[rt][nt][2 * half] + b2[col], yacc[rt][nt][2 * half + 1] + b2[col + 1]);
         }
       }
@@ -529,42 +617,68 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace f32
 
-template <int ACT>
+template <int ACT, int KD>
 int launch_tc(int R, int H, const void* x, const void* w1, const void* b1, const void* w2,
               const void* b2, void* y, cudaStream_t stream) {
   CUtensorMap xmap, w1map, w2map;
-  int err = make_map_2d(&xmap, x, R, kD, kD, tc::BM, 64);
-  if (!err) err = make_map_2d(&w1map, w1, H, kD, kD, tc::HS, 64);
-  if (!err) err = make_map_2d(&w2map, w2, kD, H, H, 256, 64);
+  int err = make_map_2d(&xmap, x, R, KD, KD, tc::BM, 64);
+  if (!err) err = make_map_2d(&w1map, w1, H, KD, KD, tc::HS, 64);
+  if (!err) err = make_map_2d(&w2map, w2, KD, H, H, tc::NW, 64);
   if (err) return err;
-  auto kern = tc::ffn_tc_kernel<ACT>;
-  err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)tc::kSmem);
+  auto kern = tc::ffn_tc_kernel<ACT, KD>;
+  constexpr size_t smem = tc::Shape<KD>::kSmem;
+  err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
-  kern<<<(R + tc::BM - 1) / tc::BM, tc::kThreads, tc::kSmem, stream>>>(
-      xmap, w1map, w2map, R, H, (const __nv_bfloat16*)b1, (const __nv_bfloat16*)b2,
-      (__nv_bfloat16*)y);
+  const dim3 grid((R + tc::BM - 1) / tc::BM, tc::Shape<KD>::kGroups);
+  kern<<<grid, tc::kThreads, smem, stream>>>(xmap, w1map, w2map, R, H, (const __nv_bfloat16*)b1,
+                                            (const __nv_bfloat16*)b2, (__nv_bfloat16*)y);
   return (int)cudaGetLastError();
 }
 
-template <int ACT>
+template <int ACT, int KD, int NY, int HS>
 int launch_f32(int R, int H, const void* x, const void* w1, const void* b1, const void* w2,
                const void* b2, void* y, cudaStream_t stream) {
-  auto kern = f32::ffn_f32_kernel<ACT>;
+  auto kern = f32::ffn_f32_kernel<ACT, KD, NY, HS>;
+  constexpr size_t smem = f32::Shape<KD, NY, HS>::kSmem;
   int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      (int)f32::kSmem);
+                                      (int)smem);
   if (err) return err;
-  kern<<<(R + f32::BM - 1) / f32::BM, f32::kThreads, f32::kSmem, stream>>>(
-      R, H, (const float*)x, (const float*)w1, (const float*)b1, (const float*)w2,
-      (const float*)b2, (float*)y);
+  const dim3 grid((R + f32::BM - 1) / f32::BM, KD / NY);
+  kern<<<grid, f32::kThreads, smem, stream>>>(R, H, (const float*)x, (const float*)w1,
+                                              (const float*)b1, (const float*)w2,
+                                              (const float*)b2, (float*)y);
   return (int)cudaGetLastError();
 }
 
+// The instance for D.  bf16: blocks of 512 y columns (masked past D; two
+// groups at D = 640, each recomputing the whole hidden for its rows).
+// f32: D <= 512, one block owns all of y's columns and walks H in 256-wide
+// slices, or 128-wide where H is an odd multiple of 128; D = 640, y's
+// columns in two groups of 320 and 128-wide slices, or x's band and the
+// weight stages would not fit the shared memory.
+template <int ACT, int KD>
+int launch_d(int dtype, int R, int H, const void* x, const void* w1, const void* b1,
+             const void* w2, const void* b2, void* y, cudaStream_t st) {
+  if (dtype == 1) return launch_tc<ACT, KD>(R, H, x, w1, b1, w2, b2, y, st);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if constexpr (KD > 512) {
+    return launch_f32<ACT, KD, KD / 2, 128>(R, H, x, w1, b1, w2, b2, y, st);
+  } else {
+    if (H % 256) return launch_f32<ACT, KD, KD, 128>(R, H, x, w1, b1, w2, b2, y, st);
+    return launch_f32<ACT, KD, KD, 256>(R, H, x, w1, b1, w2, b2, y, st);
+  }
+}
+
 template <int ACT>
-int launch(int dtype, int R, int H, const void* x, const void* w1, const void* b1,
+int launch(int dtype, int R, int D, int H, const void* x, const void* w1, const void* b1,
            const void* w2, const void* b2, void* y, cudaStream_t st) {
-  if (dtype == 0) return launch_f32<ACT>(R, H, x, w1, b1, w2, b2, y, st);
-  if (dtype == 1) return launch_tc<ACT>(R, H, x, w1, b1, w2, b2, y, st);
+  switch (D) {
+    case 128: return launch_d<ACT, 128>(dtype, R, H, x, w1, b1, w2, b2, y, st);
+    case 256: return launch_d<ACT, 256>(dtype, R, H, x, w1, b1, w2, b2, y, st);
+    case 384: return launch_d<ACT, 384>(dtype, R, H, x, w1, b1, w2, b2, y, st);
+    case 512: return launch_d<ACT, 512>(dtype, R, H, x, w1, b1, w2, b2, y, st);
+    case 640: return launch_d<ACT, 640>(dtype, R, H, x, w1, b1, w2, b2, y, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -573,16 +687,18 @@ int launch(int dtype, int R, int H, const void* x, const void* w1, const void* b
 // dtype: 0 = float32, 1 = bfloat16 for x (R, D), W1 (H, D), b1 (H),
 // W2 (D, H), b2 (D) and y (R, D), all contiguous and 16-byte aligned; act:
 // 0 swish, 1 relu, 2 gelu (tanh form), 3 hardtanh.  Returns
-// cudaErrorInvalidValue unless D = 512 and H is a positive multiple of 128.
+// cudaErrorInvalidValue unless D and H are positive multiples of 128 and
+// D <= 640.
 extern "C" int pafc_ffn(int dtype, int act, int R, int D, int H, const void* x, const void* w1,
                         const void* b1, const void* w2, const void* b2, void* y, void* stream) {
-  if (R < 1 || D != kD || H < kHStep || H % kHStep) return (int)cudaErrorInvalidValue;
+  if (R < 1 || D < kStep || D > kDMax || D % kStep || H < kStep || H % kStep)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (act) {
-    case 0: return launch<0>(dtype, R, H, x, w1, b1, w2, b2, y, st);
-    case 1: return launch<1>(dtype, R, H, x, w1, b1, w2, b2, y, st);
-    case 2: return launch<2>(dtype, R, H, x, w1, b1, w2, b2, y, st);
-    case 3: return launch<3>(dtype, R, H, x, w1, b1, w2, b2, y, st);
+    case 0: return launch<0>(dtype, R, D, H, x, w1, b1, w2, b2, y, st);
+    case 1: return launch<1>(dtype, R, D, H, x, w1, b1, w2, b2, y, st);
+    case 2: return launch<2>(dtype, R, D, H, x, w1, b1, w2, b2, y, st);
+    case 3: return launch<3>(dtype, R, D, H, x, w1, b1, w2, b2, y, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -14,9 +14,10 @@
 // R x k pairs, ~2.9 MB in bf16, so ~0.9 us at 3.35 TB/s; the arithmetic
 // (one logaddexp per score) is far below the bytes.
 //
-// Design: K2's selection launch without its product and logsumexp.  One
-// block per row reads the logp row and its CTC row (strided straight out
-// of the (B, T, V) buffer, never repeated across the beam), fuses them into
+// Design: the block selection K2 keeps for k > 32, without a product or a
+// logsumexp.  One block per row reads the logp row and its CTC row (strided
+// straight out of the (B, T, V) buffer, never repeated across the beam),
+// fuses them into
 // shared memory as f32 with the pad at -inf, and runs the shared selection.
 // No scratch buffer and no second launch.  The selection's serial argmax
 // rounds (2k block-wide reductions per row), not the bytes, bound it.
@@ -30,7 +31,6 @@
 namespace {
 
 using pafc::kChunk;
-using pafc::kMaxK;
 using pafc::kSelThreads;
 using pafc::to_f32;
 
@@ -72,7 +72,7 @@ int launch(int R, int V, int n_rep, int k, const void* logp, int logp_ld, const 
 extern "C" int pafc_fused_topk(int dtype, int R, int V, int n_rep, int k, const void* logp,
                                int logp_ld, const void* ctc, int ctc_ld, float log_tw,
                                float log_cw, void* vals, void* idx, void* stream) {
-  if (k < 1 || k > kMaxK || k > V || n_rep < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > V || n_rep < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define PAFC_ARGS                                                                             \
   R, V, n_rep, k, logp, logp_ld, ctc, ctc_ld, log_tw, log_cw, (float*)vals, (int*)idx, st

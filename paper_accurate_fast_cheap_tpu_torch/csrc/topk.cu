@@ -2,7 +2,7 @@
 // form of `top_k_vocab` (the device beam's `xla` route selects with it
 // from the fused scores):
 //
-//   top-k = topk_select.cuh (the selection of K2 and K4)
+//   top-k = topk_select.cuh (the selection of K4, and of K2 for k > 32)
 //
 // Replaces: the JAX package's ops/topk_pallas.py, `_topk_kernel` via
 // `_topk_rows` / `top_k_vocab_pallas`.  Rows in float32 or bfloat16 are
@@ -25,7 +25,6 @@
 namespace {
 
 using pafc::kChunk;
-using pafc::kMaxK;
 using pafc::kSelThreads;
 using pafc::to_f32;
 
@@ -59,7 +58,7 @@ int launch(int R, int V, int k, const void* x, long long ld, float* vals, int* i
 // columns).  vals (R, k) f32 and idx (R, k) int32 are the outputs.
 extern "C" int pafc_topk(int dtype, int R, int V, int k, const void* x, long long ld, void* vals,
                          void* idx, void* stream) {
-  if (k < 1 || k > kMaxK || k > V) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > V) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return launch<float>(R, V, k, x, ld, (float*)vals, (int*)idx, st);
   if (dtype == 1) return launch<__nv_bfloat16>(R, V, k, x, ld, (float*)vals, (int*)idx, st);

@@ -1,6 +1,6 @@
 // Exact two-level vocab top-k over one row held in shared memory, the
-// selection shared by K2 (joint_topk.cu), K4 (fused_topk.cu) and K5
-// (topk.cu).  Port of the TPU kernels' common `_select_phases`
+// selection shared by K4 (fused_topk.cu), K5 (topk.cu) and K2 (joint_topk.cu)
+// for k > 32.  Port of the TPU kernels' common `_select_phases`
 // (ops/topk_pallas.py in the JAX package) with the selection and tie rules
 // of `decode/rnnt_search.py:top_k_vocab`:
 //
@@ -17,7 +17,10 @@
 //
 // One block of kSelThreads threads per row.  The front ends stage the row
 // (Vp = 128*G scores, pad at -inf) at the start of the dynamic shared
-// memory, followed by select_smem_floats(Vp, k) - Vp floats of scratch.
+// memory, followed by select_smem_floats(Vp, k) - Vp floats of scratch:
+// the chunk maxima or the k*128 survivors, then the k picks (value,
+// position) and the k chunk ids.  So any 1 <= k <= V whose row and scratch
+// fit the block's shared memory is served (every k <= 256 at V = 5002).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,20 +30,23 @@ namespace pafc {
 
 constexpr int kChunk = 128;
 constexpr int kSelThreads = 256;
-constexpr int kMaxK = 32;
 
-struct SelectShared {
+struct SelectShared {  // the block reductions' per-warp partials
   float sv[32];
   int si[32];
-  float pick_v[kMaxK];
-  int pick_p[kMaxK];
-  int chunk_ids[kMaxK];
 };
 
-// Floats of dynamic shared memory one row's selection needs.
-inline size_t select_smem_floats(int Vp, int k) {
+// Floats between the row's start and the k picks: the row, then the chunk
+// maxima (G) or the survivors (k*128).
+__host__ __device__ inline size_t select_scratch_end(int Vp, int k) {
   const int G = Vp / kChunk;
   return (size_t)Vp + (size_t)(G > k * kChunk ? G : k * kChunk);
+}
+
+// Floats of dynamic shared memory one row's selection needs: the row, the
+// scratch, and the picks (value, position) and chunk ids, k of each.
+inline size_t select_smem_floats(int Vp, int k) {
+  return select_scratch_end(Vp, k) + 3 * (size_t)k;
 }
 
 // log(exp(a) + exp(b)) with -inf + -inf = -inf (the CTC shallow fusion).
@@ -140,11 +146,14 @@ __device__ inline void argmax_rounds(float* cand, int n, int k, float* out_v, in
 
 // The top-k of row[0, V) (row[V, Vp) at -inf), written to vals[0, k) and
 // idx[0, k).  Every thread of the block calls it after the barrier that
-// publishes the staged row; the row is overwritten.
+// publishes the staged row; the row and its scratch are overwritten.
 __device__ inline void select_topk_row(float* row, int V, int Vp, int k, float* vals, int* idx,
                                        SelectShared& sh) {
   const int G = Vp / kChunk;
   const bool direct = V <= 8 * kChunk || k >= G;
+  float* pick_v = row + select_scratch_end(Vp, k);
+  int* pick_p = reinterpret_cast<int*>(pick_v + k);
+  int* chunk_ids = pick_p + k;
   float* cand = row;
   int n_cand = V;
   if (!direct) {
@@ -159,13 +168,13 @@ __device__ inline void select_topk_row(float* row, int V, int Vp, int k, float* 
       if (lane == 0) cmax[g] = cm;
     }
     __syncthreads();
-    argmax_rounds(cmax, G, k, sh.pick_v, sh.chunk_ids, sh);
+    argmax_rounds(cmax, G, k, pick_v, chunk_ids, sh);
     if (threadIdx.x == 0) {  // ascending chunk ids: position order == index order
       for (int a = 1; a < k; ++a)
-        for (int c = a; c > 0 && sh.chunk_ids[c - 1] > sh.chunk_ids[c]; --c) {
-          const int t = sh.chunk_ids[c];
-          sh.chunk_ids[c] = sh.chunk_ids[c - 1];
-          sh.chunk_ids[c - 1] = t;
+        for (int c = a; c > 0 && chunk_ids[c - 1] > chunk_ids[c]; --c) {
+          const int t = chunk_ids[c];
+          chunk_ids[c] = chunk_ids[c - 1];
+          chunk_ids[c - 1] = t;
         }
     }
     __syncthreads();
@@ -173,15 +182,15 @@ __device__ inline void select_topk_row(float* row, int V, int Vp, int k, float* 
     cand = row + Vp;
     n_cand = k * kChunk;
     for (int p = threadIdx.x; p < n_cand; p += kSelThreads)
-      cand[p] = row[sh.chunk_ids[p / kChunk] * kChunk + p % kChunk];
+      cand[p] = row[chunk_ids[p / kChunk] * kChunk + p % kChunk];
     __syncthreads();
   }
   // phase 4: top-k of the candidates
-  argmax_rounds(cand, n_cand, k, sh.pick_v, sh.pick_p, sh);
-  if (threadIdx.x < k) {
-    const int p = sh.pick_p[threadIdx.x];
-    vals[threadIdx.x] = sh.pick_v[threadIdx.x];
-    idx[threadIdx.x] = direct ? p : sh.chunk_ids[p / kChunk] * kChunk + p % kChunk;
+  argmax_rounds(cand, n_cand, k, pick_v, pick_p, sh);
+  for (int i = threadIdx.x; i < k; i += kSelThreads) {
+    const int p = pick_p[i];
+    vals[i] = pick_v[i];
+    idx[i] = direct ? p : chunk_ids[p / kChunk] * kChunk + p % kChunk;
   }
 }
 

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict = {}
+_entries: dict = {}
 
 
 class KernelError(RuntimeError):
@@ -112,6 +113,17 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             _libs[name] = lib
         return lib
+
+
+def entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry ``symbol`` of ``csrc/<name>.cu`` with its ``argtypes``
+    and an int ``restype`` set once, at first use."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _entries[name, symbol] = fn
+    return fn
 
 
 def check(code: int, what: str) -> None:

@@ -7,12 +7,12 @@ row, the hidden activation kept on chip.  Weights are in nn.Linear layout
 (W1 (H, D), W2 (D, H): the transposes of the JAX kernel's).
 
 The source holds two kernels: in bf16, wgmma on the tensor cores over
-TMA-fed weight tiles (64-row blocks, two warpgroups splitting y's 512
+TMA-fed weight tiles (64-row blocks, two warpgroups splitting y's
 columns); in f32, 3xTF32 on the tensor cores (each operand split into two
 TF32 halves, which keeps f32 precision; 48-row blocks, the y tile in
-registers).  Both take D = 512 and H a multiple of
-256 only: :func:`check_kernel_shape` raises a :class:`KernelError` for any
-other width before a launch.
+registers).  Both take D and H positive multiples of 128 with D <= 640:
+:func:`check_kernel_shape` raises a :class:`KernelError` for any other
+width before a launch.
 
 :func:`fused_ffn` casts the weights to x's dtype, as the JAX wrapper does,
 and launches the kernel for a CUDA tensor (or raises); for a CPU tensor it
@@ -39,18 +39,19 @@ ACTIVATIONS = {
 _ACT_CODE = {name: i for i, name in enumerate(ACTIVATIONS)}
 
 _ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
-KERNEL_D = 512      # the model width the kernels take
-KERNEL_H_STEP = 256  # H must be a positive multiple of this
+KERNEL_STEP = 128   # D and H are positive multiples of this
+KERNEL_D_MAX = 640  # x's band and the weight tiles fill the shared memory
 
 
 def check_kernel_shape(D: int, H: int) -> None:
-    """Raise a KernelError unless the CUDA kernels take (D, H): D = 512
-    (y's 512 columns are held in registers, split over the warps) and H a
-    positive multiple of 256 (whole hidden slices)."""
-    if D != KERNEL_D or H < KERNEL_H_STEP or H % KERNEL_H_STEP:
+    """Raise a KernelError unless the CUDA kernels take (D, H): D and H
+    positive multiples of 128 (the JAX kernel's lane envelope) and D <= 640
+    (a block keeps its rows' x and one weight slice in shared memory)."""
+    if (D < KERNEL_STEP or D > KERNEL_D_MAX or D % KERNEL_STEP
+            or H < KERNEL_STEP or H % KERNEL_STEP):
         raise cuda_lib.KernelError(
-            f"fused_ffn: the CUDA kernel takes D = {KERNEL_D} and H a "
-            f"multiple of {KERNEL_H_STEP}, got D = {D}, H = {H}")
+            f"fused_ffn: the CUDA kernel takes D and H multiples of "
+            f"{KERNEL_STEP} with D <= {KERNEL_D_MAX}, got D = {D}, H = {H}")
 
 
 def ffn_plain(x, w1, b1, w2, b2, activation: str = "swish"):
@@ -81,8 +82,7 @@ def _ffn_kernel(x, w1, b1, w2, b2, activation):
     code = cuda_lib.dtype_code(x.dtype)
     x, w1, b1, w2, b2 = (cuda_lib.aligned16(t) for t in (x, w1, b1, w2, b2))
     y = torch.empty_like(x)
-    fn = cuda_lib.load("ffn").pafc_ffn
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = cuda_lib.entry("ffn", "pafc_ffn", _ARGTYPES)
     err = fn(code, _ACT_CODE[activation], R, D, H, x.data_ptr(),
              w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
              y.data_ptr(), cuda_lib.stream_ptr(x.device))

@@ -75,8 +75,7 @@ def fused_top_k_vocab(logp: torch.Tensor, ctc: torch.Tensor, k: int,
         ctc = ctc.contiguous()
     vals = torch.empty(R, k, device=logp.device, dtype=torch.float32)
     idx = torch.empty(R, k, device=logp.device, dtype=torch.int32)
-    fn = cuda_lib.load("fused_topk").pafc_fused_topk
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = cuda_lib.entry("fused_topk", "pafc_fused_topk", _ARGTYPES)
     err = fn(code, R, V, n_rep, k, logp.data_ptr(), logp.stride(0),
              ctc.data_ptr(), ctc.stride(0), float(log_tw), float(log_cw),
              vals.data_ptr(), idx.data_ptr(),

@@ -6,8 +6,12 @@ Port of the TPU kernel ``ops/topk_pallas.py:_joint_topk_kernel`` (via
 :func:`joint_top_k_vocab` launches the kernel or raises; for a CPU tensor it
 runs :func:`joint_top_k_vocab_plain`: the f32 product, ``log_softmax``,
 ``logaddexp`` and ``ops/topk.top_k_vocab_plain`` (the JAX wrapper's own
-fallback math, with the same selection and tie rules as the kernel, whose
-selection is ``csrc/topk_select.cuh``, shared with K4 and K5).
+fallback math, with the same selection and tie rules as the kernel).
+
+In bf16 the kernel's product runs on the tensor cores (wgmma over TMA-fed
+tiles; D a multiple of 8) and k <= 32 is selected one warp per row; larger
+k goes through the block selection shared with K4 and K5
+(``csrc/topk_select.cuh``), which takes any k whose row fits shared memory.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from paper_accurate_fast_cheap_tpu_torch.ops.topk import (
     LANES, check_select, top_k_vocab_plain)
 
 _ARGTYPES = ([ctypes.c_int] * 6 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
-             + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 4)
+             + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5)
 
 
 def _check_shapes(x, w, b, ctc, k):
@@ -76,17 +80,23 @@ def joint_top_k_vocab(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if ctc.stride(1) != 1:
         raise ValueError("joint_top_k_vocab: ctc rows must be contiguous")
     code = cuda_lib.dtype_code(x.dtype)
-    x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
+    if x.dtype == torch.bfloat16 and D % 8:
+        raise cuda_lib.KernelError(
+            f"joint_top_k_vocab: the bf16 kernel's TMA loads need D a "
+            f"multiple of 8, got {D}")
+    x, w, b = cuda_lib.aligned16(x), cuda_lib.aligned16(w), b.contiguous()
     Vp = -(-V // LANES) * LANES
+    # the product's f32 logits and, per 128-wide tile, (max, sum of exp)
     logits = torch.empty(R, Vp, device=x.device, dtype=torch.float32)
+    part = torch.empty(R, Vp // LANES, 2, device=x.device,
+                       dtype=torch.float32)
     vals = torch.empty(R, k, device=x.device, dtype=torch.float32)
     idx = torch.empty(R, k, device=x.device, dtype=torch.int32)
-    fn = cuda_lib.load("joint_topk").pafc_joint_topk
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = cuda_lib.entry("joint_topk", "pafc_joint_topk", _ARGTYPES)
     err = fn(code, R, D, V, n_rep, k, x.data_ptr(), w.data_ptr(),
              b.data_ptr(), ctc.data_ptr(), ctc.stride(0), float(log_tw),
-             float(log_cw), logits.data_ptr(), vals.data_ptr(),
-             idx.data_ptr(), cuda_lib.stream_ptr(x.device))
+             float(log_cw), logits.data_ptr(), part.data_ptr(),
+             vals.data_ptr(), idx.data_ptr(), cuda_lib.stream_ptr(x.device))
     cuda_lib.check(err, "joint_topk")
     joint_top_k_vocab.launches += 1
     return vals.reshape(B, n_rep, k), idx.reshape(B, n_rep, k)

@@ -88,8 +88,7 @@ def multi_product(x: torch.Tensor, ws: Sequence[torch.Tensor]) -> torch.Tensor:
     ws = [cuda_lib.aligned16(w) for w in ws]
     ptrs = (ctypes.c_void_p * len(ws))(*(w.data_ptr() for w in ws))
     y = torch.empty(R, H, device=x.device, dtype=torch.bfloat16)
-    fn = cuda_lib.load("multi_product").pafc_multi_product
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = cuda_lib.entry("multi_product", "pafc_multi_product", _ARGTYPES)
     err = fn(R, D, H, len(ws), x.data_ptr(), ptrs, y.data_ptr(),
              cuda_lib.stream_ptr(x.device))
     cuda_lib.check(err, f"multi_product (R {R}, D {D}, H {H}, "

@@ -26,7 +26,6 @@ from paper_accurate_fast_cheap_tpu_torch.ops import cuda_lib
 
 NEG_INF = float("-inf")
 LANES = 128
-MAX_K = 32
 # dynamic shared memory a selection block may take: the H100's 227 KB per
 # block less 1 KB for the kernels' static shared arrays
 SMEM_BYTES = 232448 - 1024
@@ -69,15 +68,24 @@ def top_k_vocab_plain(x: torch.Tensor, k: int, chunk: int = 128):
     return vals, (chunk_of * chunk + loc % chunk).to(torch.int32)
 
 
+def select_smem_bytes(V: int, k: int) -> int:
+    """Shared memory the CUDA block selection takes for a row of V scores
+    and k picks (``csrc/topk_select.cuh``: select_smem_floats): the row
+    padded to Vp, the chunk maxima or the k*128 survivors, then k picks
+    (value, position) and k chunk ids."""
+    Vp = -(-V // LANES) * LANES
+    return 4 * (Vp + max(Vp // LANES, k * LANES) + 3 * k)
+
+
 def check_select(what: str, V: int, k: int) -> None:
     """Raise unless the shared CUDA selection takes a row of V scores and
-    k picks: k <= 32, and the row plus its scratch fit shared memory."""
-    if not 0 < k <= min(V, MAX_K):
-        raise ValueError(f"{what}: k={k} outside 1..min(V={V}, {MAX_K})")
-    Vp = -(-V // LANES) * LANES
-    if (Vp + max(Vp // LANES, k * LANES)) * 4 > SMEM_BYTES:
-        raise ValueError(f"{what}: a row of V={V} does not fit the "
-                         f"selection's {SMEM_BYTES} bytes of shared memory")
+    k picks: 1 <= k <= V, and the row plus its scratch fit shared memory."""
+    if not 0 < k <= V:
+        raise ValueError(f"{what}: k={k} outside 1..V={V}")
+    if select_smem_bytes(V, k) > SMEM_BYTES:
+        raise ValueError(f"{what}: a row of V={V} with k={k} does not fit "
+                         f"the selection's {SMEM_BYTES} bytes of shared "
+                         f"memory")
 
 
 def top_k_vocab(x: torch.Tensor, k: int):
@@ -99,8 +107,7 @@ def top_k_vocab(x: torch.Tensor, k: int):
     R = xr.shape[0]
     vals = torch.empty(R, k, device=x.device, dtype=torch.float32)
     idx = torch.empty(R, k, device=x.device, dtype=torch.int32)
-    fn = cuda_lib.load("topk").pafc_topk
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = cuda_lib.entry("topk", "pafc_topk", _ARGTYPES)
     err = fn(code, R, V, k, xr.data_ptr(), xr.stride(0), vals.data_ptr(),
              idx.data_ptr(), cuda_lib.stream_ptr(x.device))
     cuda_lib.check(err, "topk")

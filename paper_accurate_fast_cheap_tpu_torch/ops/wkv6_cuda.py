@@ -91,9 +91,7 @@ def _forward(r, k, v, w, u, state, return_state):
     y = torch.empty_like(r)
     s_out = (torch.empty(B, H, N, N, device=r.device, dtype=torch.float32)
              if return_state else None)
-    lib = cuda_lib.load("wkv6_fwd")
-    fn = lib.pafc_wkv6_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = cuda_lib.entry("wkv6_fwd", "pafc_wkv6_fwd", _ARGTYPES)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = fn(code, B, T, H, N, r.data_ptr(), k.data_ptr(), v.data_ptr(),
              w.data_ptr(), uf.data_ptr(), ptr(s0), y.data_ptr(), ptr(s_out),

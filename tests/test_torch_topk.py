@@ -43,6 +43,8 @@ def _check(x, k):
     ((2, 3, 2000), 4),       # non-pow2 V
     ((16, 1537), 8),         # 2-D input, V % 128 != 0
     ((3, 5, 600), 8),        # V <= 8 * 128: the direct path
+    ((4, 8, 5002), 40),      # beam 40: k >= the chunk count, direct
+    ((4, 8, 5002), 128),
 ])
 def test_top_k_vocab_random(shape, k):
     x = (np.random.RandomState(0).randn(*shape) * 5).astype(np.float32)
@@ -126,6 +128,50 @@ def test_joint_top_k_tie_semantics():
         torch.from_numpy(x), torch.from_numpy(w.T.copy()),
         torch.from_numpy(b), torch.from_numpy(ctc), N, ltw, lcw)
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+
+
+@pytest.mark.parametrize("k", [40, 128])
+def test_joint_top_k_wide_beam_matches_jax(k):
+    """k past the selection's old 32 cap, on seeded inputs with exact ties
+    (duplicated weight columns, uniform CTC rows).  The JAX wrapper hands
+    k >= the chunk count (and k > 128) to its exact XLA top_k_vocab:
+    indices exact, values 1e-5 (the logsumexp's order).  x and w are
+    multiples of 1/4 and 1/8, so every logit is exact in f32 in any
+    summation order and the duplicated columns tie in both packages (and
+    many other logits tie too)."""
+    B, N, V, D = 2, 4, 1408, 128
+    rng = np.random.default_rng(3)
+    w = (rng.integers(-4, 5, size=(D, V)) / 8).astype(np.float32)
+    w[:, 400:420] = w[:, 100:120]
+    w[:, 1300:1320] = w[:, 100:120]
+    b = np.zeros((V,), np.float32)
+    x = (rng.integers(-4, 5, size=(B * N, D)) / 4).astype(np.float32)
+    ctc = np.full((B, V), -np.log(V), np.float32)
+    ltw, lcw = float(np.log(0.7)), float(np.log(0.3))
+    vj, ij = joint_top_k_vocab_pallas(jnp.asarray(x), jnp.asarray(w),
+                                      jnp.asarray(b), jnp.asarray(ctc), k,
+                                      ltw, lcw)
+    vt, it = joint_top_k_vocab(
+        torch.from_numpy(x), torch.from_numpy(w.T.copy()),
+        torch.from_numpy(b), torch.from_numpy(ctc), k, ltw, lcw)
+    assert it.shape == (B, N, k)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_check_select_takes_any_k_that_fits():
+    """The CUDA selection serves every k whose row and scratch fit the
+    block's shared memory (k = 40, 128 and 256 at the flagship's V), and
+    refuses a k past V or a row too wide to stage."""
+    for k in (1, 8, 40, 128, 256):
+        t_topk.check_select("t", 5002, k)
+    with pytest.raises(ValueError, match="outside 1..V"):
+        t_topk.check_select("t", 100, 101)
+    with pytest.raises(ValueError, match="does not fit"):
+        t_topk.check_select("t", 60000, 8)
+    with pytest.raises(ValueError, match="does not fit"):
+        t_topk.check_select("t", 5002, 1024)
 
 
 def _mixed_rows(V, seed):
