@@ -5,15 +5,18 @@ Phases, each fatal on failure (no phase is skipped or caught):
   1. device report: the card's name and power limit (nvidia-smi);
   2. build: every kernel under paper_accurate_fast_cheap_tpu_torch/csrc/,
      one nvcc per source, all started together, with ptxas's registers and
-     spills and the HGMMA (wgmma) count of the K2, K3, K6 and K7
-     libraries;
+     spills, the HGMMA (wgmma) count of the K2, K3, K6 and K7 libraries
+     and the HMMA (mma.sync) count of each bf16 instance of K1;
   3. each kernel against its plain PyTorch version on the card, at the
      shapes its paths give it, in float32 and bfloat16, with its time per
      call (eager, and on the device alone: calls replayed from a CUDA
      graph), the plain version's time, a library yardstick where one
-     exists, and the least time the card could take (bound); K6 in all
-     four activations and both dtypes at 5984, 71936 and 777 rows, and
-     its gradient against autograd through its plain version; K7 at the
+     exists, and the least time the card could take (bound); K1 also at
+     head sizes 16, 32, 64 and 128 and T = 1, 77 and 374, with and without
+     the state in and out, and timed at the training step's shape; K6 in
+     all four activations and both dtypes at 5984, 71936 and 777 rows, at
+     D = 384, 640, 768 and 1024, and its gradient against autograd through
+     its plain version; K7 at the
      crash-repro tool's shapes (2, 3, 1 and 8 buffers, and R = 256); the
      K6 and K7 wrappers' shape refusals; K1 under autograd at the training
      step's shape (its analytic backward is plain PyTorch), in f32 and in
@@ -28,7 +31,8 @@ Phases, each fatal on failure (no phase is skipped or caught):
   6. the recognize_wav CLI at full width, 32 x 90 s windows of one WAV, for
      the HAT and the standard flagship, with the counters, the TXT and the
      CTM checked; then at beam 40 on 2 windows in f32, its own route (K2)
-     against the xla route (K5), the TXT byte for byte;
+     against the xla route (K5), the TXT byte for byte, and the xla route
+     twice, the same tokens;
   7. the crash-repro tool's five cases (tools/repro_tpu_worker_crash.py):
      pinned_bisect (K7), v7_encoder and pallas_lf (K1), sort_topk (K5) and
      pinned_outer_jit at 4 x 9000 frames (K1-K3), with the counters;
@@ -191,17 +195,36 @@ def phase_build():
                                              "entry function", "(C75")):
                         log(f"  ptxas {name}: {ln.strip()}")
     # the bf16 paths of K2, K3, K6 and K7 must reach the tensor cores:
-    # wgmma is HGMMA in the SASS
+    # wgmma is HGMMA in the SASS; K1's products are mma.sync, HMMA, counted
+    # per bf16 instance (its f32 instances' 3xTF32 are HMMA too)
     tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
     hgmma = {}
     if os.path.exists(tool):
-        for name in ("joint_topk", "lstm_step", "ffn", "multi_product"):
+        for name, op in (("joint_topk", "HGMMA"), ("lstm_step", "HGMMA"),
+                         ("ffn", "HGMMA"), ("multi_product", "HGMMA"),
+                         ("wkv6_fwd", "HMMA")):
             sass = subprocess.run([tool, "-sass", cuda_lib.lib_path(name)],
                                   capture_output=True, text=True).stdout
-            hgmma[name] = sum("HGMMA" in ln for ln in sass.splitlines())
-        log(f"HGMMA instructions (cuobjdump -sass): {json.dumps(hgmma)}")
+            if name != "wkv6_fwd":
+                hgmma[f"{name} {op}"] = sum(op in ln
+                                            for ln in sass.splitlines())
+                continue
+            # "Function : <mangled name>" opens each kernel's SASS
+            inst = "wkv6_fwd_kernelI13__nv_bfloat16Li"
+            per_n = dict.fromkeys((16, 32, 64, 128), 0)
+            for part in sass.split("Function : ")[1:]:
+                fn = part.split(None, 1)[0]
+                if inst in fn:
+                    n = int(fn.split(inst, 1)[1].split("E", 1)[0])
+                    per_n[n] = per_n.get(n, 0) + sum(
+                        op in ln for ln in part.splitlines())
+            for n, count in per_n.items():
+                hgmma[f"wkv6_fwd bf16 N={n} {op}"] = count
+        log("tensor-core instructions (cuobjdump -sass): "
+            + json.dumps(hgmma))
     else:
-        log("HGMMA instructions: not counted (no cuobjdump beside nvcc)")
+        log("tensor-core instructions: not counted (no cuobjdump beside "
+            "nvcc)")
     return all(n > 0 for n in hgmma.values())
 
 
@@ -211,8 +234,48 @@ def _randn(shape, g, scale=1.0, shift=0.0):
     return torch.randn(shape, generator=g, device="cuda") * scale + shift
 
 
+def _wkv_agree(K, r, k, v, w, u, s0):
+    """K1 against wkv6_chunked on one input set, in both dtypes, with the
+    state in and out when s0 is given.  f32: the kernel's blocked sums
+    against the chunked form's (exact in exact arithmetic), so the gap is
+    f32 rounding: 1e-4 of the output scale, the state included.  bf16 in
+    and out: the kernel's products take bf16 operands with f32 sums, held
+    to the plain version run in f32 on the same bf16 values; the gap is the
+    operands' and y's bf16 rounding (2^-8 relative): 1e-2 of the output
+    scale, the state included.  Also the bf16 gap against wkv6_chunked run
+    on the bf16 inputs (bf16 operands too: the same rounding class), which
+    is printed, not held.  Returns (ok, f32 err, bf16 err, bf16-vs-bf16
+    gap, scales)."""
+    st = s0 is not None
+
+    def run(fn, *xs):
+        out = fn(*xs, u, state=s0, return_state=st)
+        return out if st else (out, None)
+
+    def gap(a, b):
+        e = float((a[0].float() - b[0].float()).abs().max())
+        return max(e, float((a[1] - b[1]).abs().max())) if st else e
+
+    y_p, s_p = run(K.wkv6_chunked, r, k, v, w)
+    scale = float(y_p.abs().max())
+    err = gap(run(K.wkv6_cuda, r, k, v, w), (y_p, s_p))
+    rb, kb, vb, wb = (x.bfloat16() for x in (r, k, v, w))
+    kern_b = run(K.wkv6_cuda, rb, kb, vb, wb)
+    plain_f = run(K.wkv6_chunked, *(x.float() for x in (rb, kb, vb, wb)))
+    scale_b = float(plain_f[0].abs().max())
+    err_b = gap(kern_b, plain_f)
+    gap_bb = gap(kern_b, run(K.wkv6_chunked, rb, kb, vb, wb))
+    ok = (err <= 1e-4 * scale and err_b <= 1e-2 * scale_b
+          and kern_b[0].dtype == rb.dtype)
+    return ok, err, err_b, gap_bb, scale, scale_b
+
+
 def check_wkv(g):
-    """K1 at one encoder WKV call of the flagship window batch."""
+    """K1 at one encoder WKV call of the flagship window batch, then at
+    every head size the wrapper takes (16, 32, 64, 128), at T = 1, 77 (a
+    partial chunk) and 374 (the training step's length), with and without
+    the state in and out, in both dtypes; then its times at the decode and
+    the training shapes."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.ops import wkv6_cuda as K
@@ -222,48 +285,64 @@ def check_wkv(g):
     w = _randn((B, T, H, N), g, 1.0, -2.0)    # reaches the decay clamp
     u = _randn((H, N), g, 0.5)
     s0 = _randn((B, H, N, N), g, 0.1)
-    out = {}
-    # f32: the kernel's sequential sums against the chunked form's blocked
-    # ones; both exact in exact arithmetic, so the gap is f32 rounding over
-    # T=2250 steps: 1e-4 of the output scale.
-    y_k, s_k = K.wkv6_cuda(r, k, v, w, u, state=s0, return_state=True)
-    y_p, s_p = K.wkv6_chunked(r, k, v, w, u, state=s0, return_state=True)
-    scale = float(y_p.abs().max())
-    err = max(float((y_k - y_p).abs().max()), float((s_k - s_p).abs().max()))
-    ok32 = err <= 1e-4 * scale
-    # bf16 in/out: the same f32 recurrence on identical bf16 inputs, held to
-    # the plain version run in f32; the gap is the rounding of y to bf16
-    # (2^-8 relative): 1e-2 of the output scale.
+    out, ok_all = {}, True
+    for state in (s0, None):
+        ok, err, err_b, gap_bb, scale, scale_b = _wkv_agree(
+            K, r, k, v, w, u, state)
+        ok_all = ok_all and ok
+        log(f"K1 wkv6 ({B}x{T}x{H}x{N}, state "
+            f"{'none' if state is None else 'in and out'}) f32: max_abs_err "
+            f"{err:.3e} <= {1e-4 * scale:.3e} [1e-4 x scale]; bf16: "
+            f"{err_b:.3e} <= {1e-2 * scale_b:.3e} [1e-2 x scale] "
+            f"{'ok' if ok else 'FAIL'}; bf16 against wkv6_chunked on the "
+            f"bf16 inputs (printed): {gap_bb:.3e} ({gap_bb / scale_b:.2e} x "
+            "scale)")
+    for n in (16, 32, 64, 128):
+        for t in (1, 77, 374):
+            for st in (False, True):
+                xs = [_randn((2, t, 4, n), g, 0.5) for _ in range(3)]
+                xs.append(_randn((2, t, 4, n), g, 1.0, -2.0))
+                un = _randn((4, n), g, 0.5)
+                sn = _randn((2, 4, n, n), g, 0.1) if st else None
+                ok, e32, eb, ebb, sc, scb = _wkv_agree(K, *xs, un, sn)
+                ok_all = ok_all and ok
+                log(f"K1 wkv6 (2x{t}x4x{n}, state "
+                    f"{'in and out' if st else 'none'}): f32 {e32:.3e} <= "
+                    f"{1e-4 * sc:.3e}; bf16 {eb:.3e} <= {1e-2 * scb:.3e}; "
+                    f"bf16 vs bf16 {ebb:.3e} {'ok' if ok else 'FAIL'}")
+
     rb, kb, vb, wb = (x.bfloat16() for x in (r, k, v, w))
-    y_kb = K.wkv6_cuda(rb, kb, vb, wb, u)
-    y_pb = K.wkv6_chunked(*(x.float() for x in (rb, kb, vb, wb)), u)
-    scale_b = float(y_pb.abs().max())
-    err_b = float((y_kb.float() - y_pb).abs().max())
-    okb = err_b <= 1e-2 * scale_b
-    log(f"K1 wkv6 f32: max_abs_err {err:.3e} (state incl.) <= "
-        f"{1e-4 * scale:.3e} [1e-4 x scale] {'ok' if ok32 else 'FAIL'}; "
-        f"bf16: {err_b:.3e} <= {1e-2 * scale_b:.3e} [1e-2 x scale] "
-        f"{'ok' if okb else 'FAIL'}")
     ms = cuda_time_ms(lambda: K.wkv6_cuda(rb, kb, vb, wb, u), 10)
     dev = device_ms(lambda: K.wkv6_cuda(rb, kb, vb, wb, u), 10)
     plain_ms = cuda_time_ms(
         lambda: K.wkv6_chunked(rb, kb, vb, wb, u), 3, warmup=1)
+    split = kernel_split(lambda: K.wkv6_cuda(rb, kb, vb, wb, u), 10)
     # Bound: r, k, v, w read and y written once in bf16.  The operations
-    # are the recurrence's 4N^2 + 3N per step, at the tensor-core rate: the
-    # TPU kernel and the chunked plain version compute the same y as
-    # blocked products on the matrix units, so the sequential walk's
-    # CUDA-core FMAs are this kernel's cost, not the function's.
+    # are the recurrence's 4N^2 + 3N per step, at the tensor-core rate (the
+    # kernel's blocked products run there).
     nbytes = 5 * B * T * H * N * 2 + H * N * 4
     flops = B * T * H * (4 * N * N + 3 * N)
     bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    split = {name: round(t, 4) for name, t in split.items()}
     log(f"K1 wkv6 bf16 ({B}x{T}x{H}x{N}): kernel {ms:.4f} ms (device "
-        f"{dev:.4f}), plain {plain_ms:.4f} ms, library n/a, bound "
-        f"{bms:.4f} ms ({by})")
+        f"{dev:.4f}; split {json.dumps(split)}), plain {plain_ms:.4f} ms, "
+        f"library n/a, bound {bms:.4f} ms ({by})")
+    # the training step's call: B16 x 374 x 8 x 64, bf16
+    Bt, Tt = TRAIN_BATCH, TRAIN_ENC_FRAMES
+    rt, kt, vt = (_randn((Bt, Tt, H, N), g, 0.5).bfloat16() for _ in range(3))
+    wt = _randn((Bt, Tt, H, N), g, 1.0, -2.0).bfloat16()
+    ms_t = cuda_time_ms(lambda: K.wkv6_cuda(rt, kt, vt, wt, u), 10)
+    dev_t = device_ms(lambda: K.wkv6_cuda(rt, kt, vt, wt, u), 10)
+    bms_t, _ = bound_ms(5 * Bt * Tt * H * N * 2 + H * N * 4,
+                        Bt * Tt * H * (4 * N * N + 3 * N), PEAK_BF16_FLOPS)
+    log(f"K1 wkv6 bf16 ({Bt}x{Tt}x{H}x{N}, the training step's call): "
+        f"kernel {ms_t:.4f} ms (device {dev_t:.4f}), bound {bms_t:.4f} ms "
+        "(bytes)")
     out.update(name="wkv6_fwd", max_abs_err=err_b, ms=ms, device_ms=dev,
                plain_ms=plain_ms,
                bound_ms=bms, bound_by=by, library_ms=None,
                max_abs_err_f32=err)
-    return out, ok32 and okb
+    return out, ok_all
 
 
 def _topk_agree(vals_k, idx_k, vals_p, idx_p, fused, tol):
@@ -686,9 +765,11 @@ def check_ffn(g):
 
     # the other widths of the JAX kernel's envelope (multiples of 128):
     # D = 384 and 640 (two column groups over blocks, each recomputing the
-    # hidden), and D = 256 with H = 1152 (a half slice in the f32 kernel);
+    # hidden), D = 256 with H = 1152 (a half slice in the f32 kernel), and
+    # D = 768 and 1024 (H = 4D: the streaming form, x's chunks beside W1's);
     # the ragged 777 rows, every activation, both dtypes, the same limits
-    for Dw, Hw in ((384, 1536), (640, 2560), (256, 1152)):
+    for Dw, Hw in ((384, 1536), (640, 2560), (256, 1152), (768, 3072),
+                   (1024, 4096)):
         ww = (_randn((Hw, Dw), g, Dw ** -0.5), _randn((Hw,), g, 0.1),
               _randn((Dw, Hw), g, Hw ** -0.5), _randn((Dw,), g, 0.1))
         xw = _randn((777, Dw), g)
@@ -712,10 +793,6 @@ def check_ffn(g):
     ok_all = _refuses("K6 with D = 448, not a multiple of 128", lambda:
                       K.fused_ffn(_randn((64, 448), g), w1[:, :448], b1,
                                   w2[:448], b2[:448]),
-                      cuda_lib.KernelError) and ok_all
-    ok_all = _refuses("K6 with D = 768, past 640", lambda:
-                      K.fused_ffn(_randn((64, 768), g), _randn((H, 768), g),
-                                  b1, _randn((768, H), g), _randn((768,), g)),
                       cuda_lib.KernelError) and ok_all
     ok_all = _refuses("K6 with H = 2000, not a multiple of 128", lambda:
                       K.fused_ffn(x4, w1[:2000], b1[:2000],
@@ -750,6 +827,14 @@ def check_ffn(g):
     times(_randn((x_dec.shape[0], 640), g), torch.bfloat16, w640)
     times(_randn((x_train.shape[0], 640), g), torch.float32, w640)
     del w640
+    # D = 768 and 1024, H = 4D: the streaming form
+    for Dw in (768, 1024):
+        ww = (_randn((4 * Dw, Dw), g, Dw ** -0.5), _randn((4 * Dw,), g, 0.1),
+              _randn((Dw, 4 * Dw), g, (4 * Dw) ** -0.5),
+              _randn((Dw,), g, 0.1))
+        times(_randn((x_dec.shape[0], Dw), g), torch.bfloat16, ww)
+        times(_randn((x_train.shape[0], Dw), g), torch.float32, ww)
+        del ww
     ms, dev, plain_ms, lib_ms, bms, by = times(x_train, torch.float32)
     return dict(name="ffn", max_abs_err=errs[x_train.shape[0], "swish",
                                              torch.float32],
@@ -1302,7 +1387,13 @@ def phase_beam40(paths, rng):
     standard flagship in f32, through the CLI's own route (pallas_joint:
     K2 at k = 40, the block selection) and through the xla route (K5),
     each with the counters zeroed just before and read just after: the
-    TXT files byte for byte.  Returns ok."""
+    TXT files byte for byte, and the xla route run twice, the same tokens.
+    The two routes compute the same scores in two f32 orders (K2's
+    in-kernel logits and logsumexp; torch's joint and log_softmax, then
+    K5), so the beams keep the same 40 hypotheses unless two candidates at
+    the cut tie to rounding: each window's best score under both routes is
+    printed, so that a failure tells such a tie (scores a few 1e-6 apart,
+    the encoder's output unchanged) from a fault.  Returns ok."""
     import functools
 
     import torch
@@ -1316,11 +1407,22 @@ def phase_beam40(paths, rng):
     _write_wav(wav, np.clip(rng.randn(n) * 0.1 * 32768, -32768,
                             32767).astype(np.int16))
     search = rnnt_search.rnnt_beam_search
-    texts, ok = {}, True
-    for route, kernel in (("pallas_joint", "joint_topk"), ("xla", "topk")):
-        out = os.path.join(d, f"out_beam40_{route}")
+    finalize = rnnt_search.finalize_device_beam
+    texts, results, ok = {}, {}, True
+    for run, route, kernel in (("pallas_joint", "pallas_joint", "joint_topk"),
+                               ("xla", "xla", "topk"),
+                               ("xla again", "xla", "topk")):
+        out = os.path.join(d, f"out_beam40_{run.replace(' ', '_')}")
+        found = results[run] = []
+
+        def keep(*a, **k):
+            res = finalize(*a, **k)
+            found.extend(res)
+            return res
+
         rnnt_search.rnnt_beam_search = functools.partial(search,
                                                          topk_impl=route)
+        rnnt_search.finalize_device_beam = keep
         try:
             zero_counts()
             t0 = time.perf_counter()
@@ -1335,21 +1437,35 @@ def phase_beam40(paths, rng):
             counts = read_counts()
         finally:
             rnnt_search.rnnt_beam_search = search
+            rnnt_search.finalize_device_beam = finalize
         with open(os.path.join(out, "two.txt"), "rb") as f:
-            texts[route] = f.read()
+            texts[run] = f.read()
         want = dict.fromkeys(counts, 0)
         want.update({"wkv6_fwd": 24, "lstm_step": CLI_FRAMES + 1,
                      kernel: CLI_FRAMES})
-        good = rc == 0 and counts == want and len(texts[route].split()) > 0
+        good = rc == 0 and counts == want and len(texts[run].split()) > 0
         ok = ok and good
-        log(f"beam {BEAM_WIDE} CLI ({route}, 2 x 90 s, f32): "
+        log(f"beam {BEAM_WIDE} CLI ({run}, 2 x 90 s, f32): "
             f"{wall:.2f} s, launch counters {json.dumps(counts)}, expected "
-            f"{json.dumps(want)}, TXT {len(texts[route].split())} words "
+            f"{json.dumps(want)}, TXT {len(texts[run].split())} words "
             f"{'ok' if good else 'FAIL'}")
     same = texts["pallas_joint"] == texts["xla"]
-    log(f"beam {BEAM_WIDE} CLI: pallas_joint and xla TXT identical {same} "
-        f"{'ok' if same else 'FAIL'}")
-    return ok and same
+    steady = (texts["xla"] == texts["xla again"] and
+              [r.tokens for r in results["xla"]]
+              == [r.tokens for r in results["xla again"]])
+    for w, (a, b) in enumerate(zip(results["pallas_joint"], results["xla"])):
+        part = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                     if x != y), min(len(a.tokens), len(b.tokens)))
+        differ = (f"differ from token {part}" if a.tokens != b.tokens
+                  else "identical")
+        log(f"  window {w}: tokens {differ} ({len(a.tokens)} / "
+            f"{len(b.tokens)}); best score {a.score:.6f} (pallas_joint) vs "
+            f"{b.score:.6f} (xla), rel "
+            f"{abs(a.score - b.score) / max(abs(b.score), 1e-30):.2e}")
+    good = same and steady
+    log(f"beam {BEAM_WIDE} CLI: pallas_joint and xla TXT identical {same}; "
+        f"xla route deterministic {steady} {'ok' if good else 'FAIL'}")
+    return ok and good
 
 
 # The training geometry of bin/train_bench.py's defaults: 16 utterances of
@@ -2019,7 +2135,8 @@ def main() -> int:
         ok = ok and good
     failed = [] if ok else ["kernels vs plain"]
     if not tensor_cores:
-        failed.append("no HGMMA in the bf16 K2/K3/K6/K7 libraries")
+        failed.append("no HGMMA in the bf16 K2/K3/K6/K7 libraries or no "
+                      "HMMA in a bf16 instance of K1")
     if not check_wkv_backward(g):
         failed.append("K1 backward vs autograd")
     if args.kernels_only:

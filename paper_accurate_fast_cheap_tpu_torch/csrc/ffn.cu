@@ -80,23 +80,36 @@
 // registers, 4 bytes of spill for swish.  A register-blocked CUDA-core
 // version (12 x 8 tiles) ran slower.
 //
+// D > 640, both dtypes (ffn_stream_kernel: mma.sync over cp.async chunks,
+// mma_frag.cuh; D a runtime argument).  x's band no longer stays resident:
+// per 128-wide hidden slice the block streams x's 32-wide k chunks beside
+// W1's (48 rows + 128 rows a chunk), then W2's chunks for its group of 512
+// y columns (zeros past D), through two cp.async stages; each group
+// recomputes the hidden, as the D = 640 form does.  8 warps: each owns 16
+// of the slice's hidden columns and 64 of the group's y columns for all 48
+// rows.  bf16 takes the fast activations, f32 3xTF32 with IEEE adds and the
+// IEEE activations, as the kernels above.  A simple form: no config of the
+// repo has D > 512.
+//
 // Limits (the C entry returns cudaErrorInvalidValue otherwise, and
-// ops/ffn.py raises a KernelError first): D in 128, 256, 384, 512, 640 and
-// H a positive multiple of 128 (every model config of the repo has 512 /
-// 2048); pointers 16-byte aligned.  Past D = 640 x's resident band and the
-// weight tiles no longer fit a block's 227 KB of shared memory.
+// ops/ffn.py raises a KernelError first): D and H positive multiples of
+// 128 (the JAX kernel's envelope); pointers 16-byte aligned.  D in 128 ..
+// 640 takes the resident-band kernels above, any larger D the streaming
+// form.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dtype.cuh"
+#include "mma_frag.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 using namespace pafc::sm90;
+namespace frag = pafc::frag;
 
 constexpr int kStep = 128;   // D and H are multiples of this
-constexpr int kDMax = 640;   // x's band and the rings fill the shared memory
 
 template <int ACT>
 __device__ __forceinline__ float act(float v) {
@@ -423,21 +436,6 @@ struct Shape {
   static_assert(NY % 64 == 0 && HS % 64 == 0, "8 warps split the columns");
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // chunk q of the block's weight stream into a stage
 template <int KD, int NY, int HS>
 __device__ __forceinline__ void load_chunk(float* st, int q, const float* __restrict__ w1,
@@ -448,7 +446,7 @@ __device__ __forceinline__ void load_chunk(float* st, int q, const float* __rest
 #pragma unroll
     for (int e = threadIdx.x; e < HS * K1 / 4; e += kThreads) {
       const int row = e / (K1 / 4), c4 = e % (K1 / 4);
-      cp_async16(st + row * W1LD + c4 * 4, w1 + (size_t)(j * HS + row) * KD + c * K1 + c4 * 4,
+      frag::cp_async16(st + row * W1LD + c4 * 4, w1 + (size_t)(j * HS + row) * KD + c * K1 + c4 * 4,
                  true);
     }
   } else {  // W2 rows y0 .. y0 + NY, k j * HS + (c - kChunks1) * K2 .. + K2
@@ -456,26 +454,9 @@ __device__ __forceinline__ void load_chunk(float* st, int q, const float* __rest
 #pragma unroll
     for (int e = threadIdx.x; e < NY * K2 / 4; e += kThreads) {
       const int row = e / (K2 / 4), c4 = e % (K2 / 4);
-      cp_async16(st + row * W2LD + c4 * 4, w2 + (size_t)(y0 + row) * H + k0 + c4 * 4, true);
+      frag::cp_async16(st + row * W2LD + c4 * 4, w2 + (size_t)(y0 + row) * H + k0 + c4 * 4, true);
     }
   }
-}
-
-// v = big + small, both TF32 (10-bit mantissas): big * big + big * small +
-// small * big carries the product to ~2^-22 of |a b|, f32 precision
-__device__ __forceinline__ void split(float v, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(v));
-  const float rest = v - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                    uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // acc[rt][nt] += A[rows rt*16.., k0..k0+8) B[cols n0 + nt*8.., same k]^T in
@@ -491,25 +472,25 @@ __device__ __forceinline__ void step(float (&acc)[RT][NT][4], const float* a, in
 #pragma unroll
   for (int rt = 0; rt < RT; ++rt) {
     const float* ar = a + (rt * 16 + g) * lda + t;
-    split(ar[0], ab[rt][0], as[rt][0]);
-    split(ar[8 * lda], ab[rt][1], as[rt][1]);
-    split(ar[4], ab[rt][2], as[rt][2]);
-    split(ar[8 * lda + 4], ab[rt][3], as[rt][3]);
+    frag::split_tf32(ar[0], ab[rt][0], as[rt][0]);
+    frag::split_tf32(ar[8 * lda], ab[rt][1], as[rt][1]);
+    frag::split_tf32(ar[4], ab[rt][2], as[rt][2]);
+    frag::split_tf32(ar[8 * lda + 4], ab[rt][3], as[rt][3]);
   }
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     uint32_t bb0, bb1, bs0, bs1;
-    split(b[(nt * 8 + g) * ldb + t], bb0, bs0);
-    split(b[(nt * 8 + g) * ldb + t + 4], bb1, bs1);
+    frag::split_tf32(b[(nt * 8 + g) * ldb + t], bb0, bs0);
+    frag::split_tf32(b[(nt * 8 + g) * ldb + t + 4], bb1, bs1);
 #pragma unroll
     for (int rt = 0; rt < RT; ++rt) {
       // the tensor core's f32 accumulation truncates: it sums only this
       // k8 step's 24 products, from zero, and the running sum takes IEEE
       // adds (accumulating in the tensor core over K misses 1e-5 of scale)
       float d[4] = {0.f, 0.f, 0.f, 0.f};
-      mma(d, as[rt][0], as[rt][1], as[rt][2], as[rt][3], bb0, bb1);
-      mma(d, ab[rt][0], ab[rt][1], ab[rt][2], ab[rt][3], bs0, bs1);
-      mma(d, ab[rt][0], ab[rt][1], ab[rt][2], ab[rt][3], bb0, bb1);
+      frag::mma_tf32(d, as[rt][0], as[rt][1], as[rt][2], as[rt][3], bb0, bb1);
+      frag::mma_tf32(d, ab[rt][0], ab[rt][1], ab[rt][2], ab[rt][3], bs0, bs1);
+      frag::mma_tf32(d, ab[rt][0], ab[rt][1], ab[rt][2], ab[rt][3], bb0, bb1);
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[rt][nt][i] += d[i];
     }
@@ -534,11 +515,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int e = threadIdx.x; e < BM * KD / 4; e += kThreads) {
     const int row = e / (KD / 4), c4 = e % (KD / 4), r = m0 + row;
-    cp_async16(xs + row * XLD + c4 * 4, x + (size_t)min(r, R - 1) * KD + c4 * 4, r < R);
+    frag::cp_async16(xs + row * XLD + c4 * 4, x + (size_t)min(r, R - 1) * KD + c4 * 4, r < R);
   }
   const int n_chunks = H / HS * Sh::kChunks;
   load_chunk<KD, NY, HS>(ws, 0, w1, w2, H, y0);
-  cp_async_commit();
+  frag::cp_async_commit();
 
   // warp w: the hidden slice's columns w * 32 .. + 32 and y's columns
   // w * 64 .. + 64, every row of the block
@@ -558,10 +539,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int q = 0; q < n_chunks; ++q) {
     if (q + 1 < n_chunks) {
       load_chunk<KD, NY, HS>(ws + ((q + 1) & 1) * kStageFloats, q + 1, w1, w2, H, y0);
-      cp_async_commit();
-      cp_async_wait<1>();
+      frag::cp_async_commit();
+      frag::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      frag::cp_async_wait<0>();
     }
     __syncthreads();
     const float* st = ws + (q & 1) * kStageFloats;
@@ -616,6 +597,197 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 }  // namespace f32
+
+// ---- D > 640: x streamed beside W1 (both dtypes, mma.sync) --------------------
+
+namespace wide {
+
+constexpr int BM = 48, RT = BM / 16;  // a block's rows: three m16 tiles
+constexpr int HS = 128;               // hidden slice
+constexpr int NY = 512;               // a block's group of y columns
+constexpr int KC = 32;                // k of one streamed chunk
+constexpr int kThreads = 256;         // 8 warps: 16 hidden and 64 y columns each
+
+template <typename T>
+struct Shape {
+  static constexpr int PAD = 16 / (int)sizeof(T);  // 16 bytes: ldmatrix rows on distinct banks
+  static constexpr int LDK = KC + PAD;             // a chunk's row pitch (elements)
+  static constexpr int LDH = HS + PAD;             // the hidden tile's
+  static constexpr int kStage = NY * LDK > (BM + HS) * LDK ? NY * LDK : (BM + HS) * LDK;
+  static constexpr int kCpr = KC * (int)sizeof(T) / 16;  // 16-byte copies per chunk row
+  static constexpr size_t kSmem = (size_t)(2 * kStage + BM * LDH) * sizeof(T);
+  static_assert(kSmem <= 232448, "fits a block's shared memory");
+};
+
+// Chunk q of the block's stream into a stage.  Per hidden slice j, D / KC
+// chunks of the first product (x rows m0.. beside W1 rows j * HS.., k
+// c * KC..; x rows past R load as zeros), then HS / KC chunks of W2 (rows
+// y0.. of the group, zero past D; k j * HS + c' * KC..).
+template <typename T>
+__device__ __forceinline__ void load_chunk(T* st, int q, int R, int D, int H, int m0, int y0,
+                                           const T* __restrict__ x, const T* __restrict__ w1,
+                                           const T* __restrict__ w2) {
+  using Sh = Shape<T>;
+  constexpr int LDK = Sh::LDK, kCpr = Sh::kCpr, EPC = 16 / (int)sizeof(T);
+  const int nc1 = D / KC, nc = nc1 + HS / KC;
+  const int j = q / nc, c = q % nc;
+  if (c < nc1) {
+    for (int e = threadIdx.x; e < (BM + HS) * kCpr; e += kThreads) {
+      const int row = e / kCpr, cc = e % kCpr;
+      const T* src;
+      bool valid = true;
+      if (row < BM) {
+        valid = m0 + row < R;
+        src = x + (size_t)(valid ? m0 + row : 0) * D + c * KC + cc * EPC;
+      } else {
+        src = w1 + (size_t)(j * HS + row - BM) * D + c * KC + cc * EPC;
+      }
+      frag::cp_async16(st + row * LDK + cc * EPC, src, valid);
+    }
+  } else {
+    const int k0 = j * HS + (c - nc1) * KC;
+    for (int e = threadIdx.x; e < NY * kCpr; e += kThreads) {
+      const int row = e / kCpr, cc = e % kCpr;
+      const bool valid = y0 + row < D;
+      frag::cp_async16(st + row * LDK + cc * EPC,
+                       w2 + (size_t)(valid ? y0 + row : 0) * H + k0 + cc * EPC, valid);
+    }
+  }
+}
+
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kThreads, 1)
+    ffn_stream_kernel(int R, int D, int H, const T* __restrict__ x, const T* __restrict__ w1,
+                      const T* __restrict__ b1, const T* __restrict__ w2,
+                      const T* __restrict__ b2, T* __restrict__ y) {
+  using Sh = Shape<T>;
+  using frag::FragA;
+  using frag::FragB;
+  constexpr int LDK = Sh::LDK, LDH = Sh::LDH, kStage = Sh::kStage;
+  extern __shared__ float4 smem4[];
+  T* stages = reinterpret_cast<T*>(smem4);
+  T* hs = stages + 2 * kStage;
+  const int m0 = blockIdx.x * BM, y0 = blockIdx.y * NY;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int nc1 = D / KC, nc = nc1 + HS / KC, n_chunks = H / HS * nc;
+
+  // warp w: the slice's hidden columns w * 16 .. + 16 and the group's y
+  // columns w * 64 .. + 64, every row of the block
+  float hacc[RT][2][4], yacc[RT][8][4];
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) yacc[rt][nt][e] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) hacc[rt][nt][e] = 0.f;
+    }
+
+  load_chunk<T>(stages, 0, R, D, H, m0, y0, x, w1, w2);
+  frag::cp_async_commit();
+  for (int q = 0; q < n_chunks; ++q) {
+    if (q + 1 < n_chunks) {
+      load_chunk<T>(stages + ((q + 1) & 1) * kStage, q + 1, R, D, H, m0, y0, x, w1, w2);
+      frag::cp_async_commit();
+      frag::cp_async_wait<1>();
+    } else {
+      frag::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* st = stages + (q & 1) * kStage;
+    const int j = q / nc, c = q % nc;
+    if (c < nc1) {  // hidden slice += x[:, chunk] W1[slice, chunk]^T
+      if (c == 0) {
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) hacc[rt][nt][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        FragB<T> b[2];
+        frag::load_b2(b, st + BM * LDK, LDK, warp * 16, 16 * kk);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          const FragA<T> a = frag::load_a(st, LDK, 16 * rt, 16 * kk);
+          frag::mma(hacc[rt][0], a, b[0]);
+          frag::mma(hacc[rt][1], a, b[1]);
+        }
+      }
+      if (c == nc1 - 1) {  // bias + activation, rounded to T, into the hidden tile
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              const int row = 16 * rt + g + 8 * hr, col = warp * 16 + 8 * nt + 2 * t;
+              const float v0 = hacc[rt][nt][2 * hr] + pafc::to_f32(b1[j * HS + col]);
+              const float v1 = hacc[rt][nt][2 * hr + 1] + pafc::to_f32(b1[j * HS + col + 1]);
+              if constexpr (frag::kF32<T>)
+                frag::store2<T>(hs + row * LDH + col, act<ACT>(v0), act<ACT>(v1));
+              else
+                frag::store2<T>(hs + row * LDH + col, act_fast<ACT>(v0), act_fast<ACT>(v1));
+            }
+      }
+    } else {  // y += h[:, chunk] W2[group, chunk]^T
+      const int k0 = (c - nc1) * KC;
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        FragA<T> a[RT];
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) a[rt] = frag::load_a(hs, LDH, 16 * rt, k0 + 16 * kk);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          FragB<T> b[2];
+          frag::load_b2(b, st, LDK, warp * 64 + 16 * p, 16 * kk);
+#pragma unroll
+          for (int rt = 0; rt < RT; ++rt) {
+            frag::mma(yacc[rt][2 * p], a[rt], b[0]);
+            frag::mma(yacc[rt][2 * p + 1], a[rt], b[1]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = m0 + 16 * rt + g + 8 * hr;
+      if (row >= R) continue;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = y0 + warp * 64 + 8 * nt + 2 * t;
+        if (col >= D) continue;
+        frag::store2<T>(y + (size_t)row * D + col,
+                        yacc[rt][nt][2 * hr] + pafc::to_f32(b2[col]),
+                        yacc[rt][nt][2 * hr + 1] + pafc::to_f32(b2[col + 1]));
+      }
+    }
+}
+
+}  // namespace wide
+
+template <typename T, int ACT>
+int launch_stream(int R, int D, int H, const void* x, const void* w1, const void* b1,
+                  const void* w2, const void* b2, void* y, cudaStream_t stream) {
+  auto kern = wide::ffn_stream_kernel<T, ACT>;
+  constexpr size_t smem = wide::Shape<T>::kSmem;
+  int err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)smem);
+  if (err) return err;
+  const dim3 grid((R + wide::BM - 1) / wide::BM, (D + wide::NY - 1) / wide::NY);
+  kern<<<grid, wide::kThreads, smem, stream>>>(R, D, H, (const T*)x, (const T*)w1,
+                                                 (const T*)b1, (const T*)w2, (const T*)b2,
+                                                 (T*)y);
+  return (int)cudaGetLastError();
+}
 
 template <int ACT, int KD>
 int launch_tc(int R, int H, const void* x, const void* w1, const void* b1, const void* w2,
@@ -679,6 +851,9 @@ int launch(int dtype, int R, int D, int H, const void* x, const void* w1, const 
     case 512: return launch_d<ACT, 512>(dtype, R, H, x, w1, b1, w2, b2, y, st);
     case 640: return launch_d<ACT, 640>(dtype, R, H, x, w1, b1, w2, b2, y, st);
   }
+  // past 640: the streaming form, D a runtime argument
+  if (dtype == 0) return launch_stream<float, ACT>(R, D, H, x, w1, b1, w2, b2, y, st);
+  if (dtype == 1) return launch_stream<__nv_bfloat16, ACT>(R, D, H, x, w1, b1, w2, b2, y, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -687,11 +862,10 @@ int launch(int dtype, int R, int D, int H, const void* x, const void* w1, const 
 // dtype: 0 = float32, 1 = bfloat16 for x (R, D), W1 (H, D), b1 (H),
 // W2 (D, H), b2 (D) and y (R, D), all contiguous and 16-byte aligned; act:
 // 0 swish, 1 relu, 2 gelu (tanh form), 3 hardtanh.  Returns
-// cudaErrorInvalidValue unless D and H are positive multiples of 128 and
-// D <= 640.
+// cudaErrorInvalidValue unless D and H are positive multiples of 128.
 extern "C" int pafc_ffn(int dtype, int act, int R, int D, int H, const void* x, const void* w1,
                         const void* b1, const void* w2, const void* b2, void* y, void* stream) {
-  if (R < 1 || D < kStep || D > kDMax || D % kStep || H < kStep || H % kStep)
+  if (R < 1 || D < kStep || D % kStep || H < kStep || H % kStep)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (act) {

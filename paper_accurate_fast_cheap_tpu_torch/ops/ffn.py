@@ -10,9 +10,11 @@ The source holds two kernels: in bf16, wgmma on the tensor cores over
 TMA-fed weight tiles (64-row blocks, two warpgroups splitting y's
 columns); in f32, 3xTF32 on the tensor cores (each operand split into two
 TF32 halves, which keeps f32 precision; 48-row blocks, the y tile in
-registers).  Both take D and H positive multiples of 128 with D <= 640:
-:func:`check_kernel_shape` raises a :class:`KernelError` for any other
-width before a launch.
+registers).  Both keep a block's x band in shared memory, which fits for
+D <= 640; past that a third kernel streams x's chunks beside W1's
+(mma.sync, both dtypes, D a runtime argument).  D and H are positive
+multiples of 128: :func:`check_kernel_shape` raises a :class:`KernelError`
+for any other width before a launch.
 
 :func:`fused_ffn` casts the weights to x's dtype, as the JAX wrapper does,
 and launches the kernel for a CUDA tensor (or raises); for a CPU tensor it
@@ -40,18 +42,16 @@ _ACT_CODE = {name: i for i, name in enumerate(ACTIVATIONS)}
 
 _ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
 KERNEL_STEP = 128   # D and H are positive multiples of this
-KERNEL_D_MAX = 640  # x's band and the weight tiles fill the shared memory
 
 
 def check_kernel_shape(D: int, H: int) -> None:
     """Raise a KernelError unless the CUDA kernels take (D, H): D and H
-    positive multiples of 128 (the JAX kernel's lane envelope) and D <= 640
-    (a block keeps its rows' x and one weight slice in shared memory)."""
-    if (D < KERNEL_STEP or D > KERNEL_D_MAX or D % KERNEL_STEP
-            or H < KERNEL_STEP or H % KERNEL_STEP):
+    positive multiples of 128 (the JAX kernel's lane envelope)."""
+    if D < KERNEL_STEP or D % KERNEL_STEP or H < KERNEL_STEP \
+            or H % KERNEL_STEP:
         raise cuda_lib.KernelError(
-            f"fused_ffn: the CUDA kernel takes D and H multiples of "
-            f"{KERNEL_STEP} with D <= {KERNEL_D_MAX}, got D = {D}, H = {H}")
+            f"fused_ffn: the CUDA kernel takes D and H positive multiples "
+            f"of {KERNEL_STEP}, got D = {D}, H = {H}")
 
 
 def ffn_plain(x, w1, b1, w2, b2, activation: str = "swish"):

@@ -1,7 +1,10 @@
 """K1: the WKV6 forward as a hand-written CUDA kernel (``csrc/wkv6_fwd.cu``).
 
 Port of the TPU kernel ``ops/wkv6_pallas.py`` (``_kernel_v5`` via the
-two-pass path, and the generations that compute the same y).  For a CUDA
+two-pass path, and the generations that compute the same y): the blocked
+form of ``wkv6_chunked`` (chunks of 64 steps, inner blocks of 16) on the
+tensor cores, one CUDA block per (batch, head) carrying the f32 state on
+chip; head sizes 16, 32, 64 and 128, float32 or bfloat16.  For a CUDA
 tensor :func:`wkv6_cuda` launches the kernel or raises; for a CPU tensor it
 runs the plain version, ``ops/wkv6.wkv6_chunked`` (same recurrence, same
 decay clamp).
@@ -80,7 +83,7 @@ def _forward(r, k, v, w, u, state, return_state):
     if N not in (16, 32, 64, 128):
         raise ValueError(f"wkv6_cuda: head size {N} not in 16/32/64/128")
     code = cuda_lib.dtype_code(r.dtype)
-    r, k, v, w = (t.contiguous() for t in (r, k, v, w))
+    r, k, v, w = (cuda_lib.aligned16(t) for t in (r, k, v, w))
     uf = u.to(torch.float32).contiguous()
     s0 = None
     if state is not None:

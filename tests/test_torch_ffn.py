@@ -170,13 +170,13 @@ def test_unknown_activation_and_impl_raise():
 def test_kernel_shape_limits():
     """The CUDA kernels' widths, checked by a plain function before any
     launch: D and H positive multiples of 128 (the JAX kernel's envelope),
-    D at most 640 (x's band and the weight tiles in shared memory).  The
-    CPU path runs the plain version, which takes any width."""
+    past D = 640 through the streaming form.  The CPU path runs the plain
+    version, which takes any width."""
     for D, H in ((512, 2048), (512, 256), (384, 1536), (640, 2560),
-                 (512, 128), (128, 128)):
+                 (512, 128), (128, 128), (768, 3072), (1024, 4096)):
         t_ffn.check_kernel_shape(D, H)
-    for D, H in ((448, 2048), (512, 200), (512, 2000), (768, 3072),
-                 (0, 2048), (512, 0)):
+    for D, H in ((448, 2048), (512, 200), (512, 2000), (0, 2048),
+                 (512, 0)):
         with pytest.raises(t_ffn.cuda_lib.KernelError,
-                           match="multiples of 128 with D <= 640"):
+                           match="positive multiples of 128"):
             t_ffn.check_kernel_shape(D, H)

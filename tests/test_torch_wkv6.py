@@ -68,6 +68,24 @@ def test_chunked_matches_jax_pallas_interpret():
                                rtol=3e-4)
 
 
+@pytest.mark.parametrize("L", [64, 32])
+def test_kernel_blocking_matches_jax_pallas_interpret(L):
+    """The chunked form at K1's blocking (chunks of L = 64 steps, or 32 for
+    f32 at N = 128; inner blocks of 16) with a ragged T (a partial last
+    chunk) and a state in and out, against the two-pass Pallas kernel at
+    the same chunk size in interpret mode."""
+    r, k, v, w, u, s0 = _inputs(6, B=1, T=77, N=32, state=True)
+    yj, sj = wkv6_pallas(*_j(r, k, v, w, u), state=jnp.asarray(s0),
+                         chunk_size=L, return_state=True, version=5)
+    yt, st = t_wkv6.wkv6_chunked(*_t(r, k, v, w, u), state=_t(s0)[0],
+                                 chunk_size=L, inner_size=16,
+                                 return_state=True)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=3e-4,
+                               rtol=3e-4)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=3e-4,
+                               rtol=3e-4)
+
+
 def test_streaming_split_matches_one_pass():
     """Two calls carrying the state equal one call over the whole T."""
     r, k, v, w, u, s0 = _inputs(3, T=70, state=True)
