@@ -513,8 +513,20 @@ def check_lstm(g):
                 max_abs_err_f32=errs[torch.float32]), ok_all
 
 
+def _identical_rows(vk, ik, vp, ip):
+    """Per row: the same values bit for bit (f32) and the same indices."""
+    import torch
+
+    bits = (vk.float().view(torch.int32) == vp.float().view(torch.int32))
+    return bits.all(-1), (ik == ip).all(-1)
+
+
 def check_fused_topk(g):
-    """K4 at one beam frame of the HAT flagship: R = 32 x beam 8 rows."""
+    """K4 at one beam frame of the HAT flagship: R = 32 x beam 8 rows,
+    k = 8, 40 and 128 in both dtypes; exact ties; rows finite in only 3
+    chunks (the two-level rule's -inf path, which the kernel runs for such
+    a row) and direct-path rows (V = 600) short of k finite scores; the
+    device time at each k and dtype."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.ops import fused_topk as K
@@ -522,29 +534,78 @@ def check_fused_topk(g):
     B, N, V = 32, 8, 5002
     R = B * N
     log_tw, log_cw = float(np.log(0.7)), float(np.log(0.3))
+    inf = float("inf")
     bias = torch.zeros(V, device="cuda")
     bias[0] += 2.5
     logp = torch.log_softmax(_randn((R, V), g, 2.0) + bias, -1)
     ctc_full = torch.log_softmax(_randn((B, 3, V), g, 2.0) + bias, -1)
+    # every other utterance's beam rows finite in columns 0-299 only (3
+    # chunks < k = 8), the CTC term off (log_cw = -inf); the rest random
+    deg = logp.clone().view(B, N, V)
+    deg[::2, :, 300:] = -inf
+    # V = 600 (the direct path): every other utterance's rows hold 5 finite
+    # scores (< k = 8)
+    few = logp[:, :600].clone().view(B, N, 600)
+    keep = torch.zeros(600, dtype=torch.bool, device="cuda")
+    keep[[17, 100, 333, 401, 599]] = True
+    few[::2, :, ~keep] = -inf
+    # integer scores: many columns share the top lower bound max(a, b), so
+    # (by the CPU model of the filter) the candidates overflow their space
+    # and the kernel takes its exact retry
+    rng = np.random.default_rng(1)
+    ints = torch.from_numpy(rng.integers(-6, 6, size=(R, V)).astype(
+        np.float32)).cuda()
+    ctc_ints = torch.from_numpy(rng.integers(-9, 3, size=(B, 3, V)).astype(
+        np.float32)).cuda()
     res, ok_all = {}, True
-    # f32 and bf16 inputs: kernel and plain fuse the same (upcast) values
-    # in f32; the gap is expf/log1pf against torch.logaddexp's rounding,
-    # a few ulps of O(10) scores: values 1e-6 abs + 1e-6 rel.
+
+    def agree(label, lp, ctc, k, lcw):
+        # Kernel and plain fuse the same (upcast) values in f32 by the same
+        # formula (expf and log1pf, pafc::logaddexp against
+        # torch.logaddexp), so a row must give identical values and
+        # indices; a row whose values differ in their last bits (the two
+        # logaddexps rounding differently) is held to 1e-6 abs + 1e-6 rel,
+        # indices swapped only between near-ties.
+        vk, ik = K.fused_top_k_vocab(lp, ctc, k, log_tw, lcw)
+        vp, ip = K.fused_top_k_vocab_plain(lp, ctc, k, log_tw, lcw)
+        bits, same_idx = _identical_rows(vk, ik, vp, ip)
+        ok = bool(same_idx[bits].all())
+        n_round = int((~bits).sum())
+        n_mis = 0
+        if n_round:
+            nb, nr, v = B, lp.shape[0] // B, lp.shape[1]
+            fused = torch.logaddexp(
+                log_tw + lp.float(), lcw + ctc[:, :v].float()
+                .repeat_interleave(nr, 0)).reshape(nb, nr, v)
+            _, n_mis, ok_r = _topk_agree(vk[~bits], ik[~bits], vp[~bits],
+                                         ip[~bits], fused[~bits], 1e-6)
+            ok = ok and ok_r
+        verr = float((vk - vp).abs().nan_to_num(0.0).max())
+        log(f"K4 fused_topk {label} (k={k}): {bits.numel() - n_round} of "
+            f"{bits.numel()} rows identical (values bit for bit, indices); "
+            f"{n_round} rows rounded apart by the two logaddexps, within "
+            f"1e-6 (+1e-6 rel), index swaps {n_mis} (near-ties only) "
+            f"{'ok' if ok else 'FAIL'}")
+        return verr, ok
+
     for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
         lp, ctc = logp.to(dt), ctc_full.to(dt)[:, 1]  # strided, as in the beam
-        fused = torch.logaddexp(
-            log_tw + lp.float(),
-            log_cw + ctc.float().repeat_interleave(N, 0)).reshape(B, N, V)
         for k in (N, 40, 128):  # the beam's k, and beams past 32
-            vk, ik = K.fused_top_k_vocab(lp, ctc, k, log_tw, log_cw)
-            vp, ip = K.fused_top_k_vocab_plain(lp, ctc, k, log_tw, log_cw)
-            verr, n_mis, ok = _topk_agree(vk, ik, vp, ip, fused, 1e-6)
+            verr, ok = agree(name, lp, ctc, k, log_cw)
             ok_all = ok_all and ok
-            log(f"K4 fused_topk {str(dt)[6:]} (k={k}): values max_abs_err "
-                f"{verr:.3e} <= 1e-6 (+1e-6 rel), index mismatches {n_mis} "
-                f"(near-ties only) {'ok' if ok else 'FAIL'}")
             if k == N:
                 res[dt] = verr
+        for label, lpd, ctcd, k in (
+                ("3 finite chunks in half the rows", deg.view(R, V), ctc, N),
+                ("3 finite chunks in half the rows", deg.view(R, V), ctc, 2),
+                ("direct V=600, 5 finite in half the rows", few.view(R, 600),
+                 ctc[:, :600], N)):
+            _, ok = agree(f"{name} {label}", lpd.to(dt), ctcd, k, -inf)
+            ok_all = ok_all and ok
+        _, ok = agree(f"{name} integer scores", ints.to(dt),
+                      ctc_ints.to(dt)[:, 1], N, log_cw)
+        ok_all = ok_all and ok
     # exact ties: duplicated logp blocks across chunk boundaries and a
     # uniform CTC row; indices must equal the plain version's exactly
     lt = logp.clone()
@@ -557,6 +618,13 @@ def check_fused_topk(g):
         ((vk - vp).abs() <= 1e-6 + 1e-6 * vp.abs()).all())
     ok_all = ok_all and ties_ok
     log(f"K4 fused_topk ties: indices identical {'ok' if ties_ok else 'FAIL'}")
+    for dt in (torch.float32, torch.bfloat16):
+        lp, ctc = logp.to(dt), ctc_full.to(dt)[:, 1]
+        times = {k: device_ms(lambda: K.fused_top_k_vocab(lp, ctc, k, log_tw,
+                                                          log_cw))
+                 for k in (N, 40, 128)}
+        log(f"K4 fused_topk {str(dt)[6:]} device ms (R={R}, V={V}): "
+            + ", ".join(f"k={k} {t:.4f}" for k, t in times.items()))
     lb, cb = logp.bfloat16(), ctc_full.bfloat16()[:, 1]
     ms = cuda_time_ms(lambda: K.fused_top_k_vocab(lb, cb, N, log_tw, log_cw),
                       50)
@@ -586,7 +654,10 @@ def check_fused_topk(g):
 
 def check_topk(g):
     """K5 at one beam frame of the xla route: the (32, 8, 5002) fused
-    scores, and the JAX kernel tests' tie patterns."""
+    scores, the JAX kernel tests' tie patterns, rows finite in only 3
+    chunks (the two-level rule's -inf path, which the kernel runs for such
+    a row) and direct-path rows (V = 600) short of k finite scores; the
+    device time at k = 8, 40 and 128."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.ops import topk as K
@@ -602,24 +673,34 @@ def check_topk(g):
         rng.normal(size=(4, 4, 1664)).astype(np.float32)).cuda()
     dead[0, 1] = -float("inf")               # dead beam row
     dead[2, :, 700:] = -float("inf")         # masked vocab tail
+    chunks3 = x.clone()
+    chunks3[::2, :, 300:] = -float("inf")    # 3 finite chunks < k = 8
+    few = x[..., :600].clone()
+    few[::2, :, 5:] = -float("inf")          # 5 finite scores < k = 8
     cases = [("scores f32", x, N), ("scores bf16", x.bfloat16(), N),
              ("integer ties", ties, 8), ("-inf rows/tails", dead, 6),
              ("direct V=600", x[..., :600].contiguous(), N),
+             ("3 finite chunks in half the rows", chunks3, N),
+             ("3 finite chunks in half the rows", chunks3.bfloat16(), 2),
+             ("direct V=600, 5 finite in half the rows", few, N),
              ("scores f32, beam 40", x, 40), ("scores bf16", x.bfloat16(), 128),
              ("integer ties", ties, 40), ("-inf rows/tails", dead, 128)]
     ok_all, err = True, 0.0
     # no arithmetic: the kernel selects the plain version's very values,
-    # so values and indices must be identical
+    # so values (bit for bit) and indices must be identical
     for name, xc, k in cases:
         vk, ik = K.top_k_vocab(xc, k)
         vp, ip = K.top_k_vocab_plain(xc, k)
         e = float((vk - vp.float()).abs().nan_to_num(0.0).max())
-        ok = bool((ik == ip).all()) and bool(
-            ((vk == vp.float()) | (vk.isinf() & vp.isinf())).all())
+        bits, same_idx = _identical_rows(vk, ik, vp, ip)
+        ok = bool(bits.all()) and bool(same_idx.all())
         err = max(err, e)
         ok_all = ok_all and ok
         log(f"K5 topk {name} {tuple(xc.shape)} k={k}: identical values and "
             f"indices {'ok' if ok else 'FAIL'}")
+    times = {k: device_ms(lambda: K.top_k_vocab(x, k)) for k in (N, 40, 128)}
+    log(f"K5 topk f32 device ms (R={B * N}, V={V}): "
+        + ", ".join(f"k={k} {t:.4f}" for k, t in times.items()))
     ms = cuda_time_ms(lambda: K.top_k_vocab(x, N), 50)
     dev = device_ms(lambda: K.top_k_vocab(x, N))
     plain_ms = cuda_time_ms(lambda: K.top_k_vocab_plain(x, N), 20)

@@ -3,7 +3,7 @@
 // (the HAT joint; one call per encoder frame):
 //
 //   score = logaddexp(log_tw + logp[row], log_cw + ctc[row / n_rep])
-//   top-k = topk_select.cuh (the selection of K2 and K5)
+//   top-k = topk_filter.cuh (the selection of K5)
 //
 // Replaces: the JAX package's ops/topk_pallas.py, `_fused_topk_kernel` via
 // `_fused_topk_rows` / `fused_top_k_vocab_pallas`.  Inputs in float32 or
@@ -14,19 +14,26 @@
 // R x k pairs, ~2.9 MB in bf16, so ~0.9 us at 3.35 TB/s; the arithmetic
 // (one logaddexp per score) is far below the bytes.
 //
-// Design: the block selection K2 keeps for k > 32, without a product or a
-// logsumexp.  One block per row reads the logp row and its CTC row (strided
+// Design: one block per row reads the logp row and its CTC row (strided
 // straight out of the (B, T, V) buffer, never repeated across the beam),
-// fuses them into
-// shared memory as f32 with the pad at -inf, and runs the shared selection.
-// No scratch buffer and no second launch.  The selection's serial argmax
-// rounds (2k block-wide reductions per row), not the bytes, bound it.
+// all of a warp's loads in flight at once, and selects by the threshold
+// filter of K5: three block barriers a row, whatever k, where the first
+// version ran 2k serial block-wide argmax rounds.  Its 20 logaddexps a
+// thread (expf, log1pf) cost more than the loads, so the row holds
+// max(a, b), a lower bound within 0.7 of the score, the group keys and
+// tau come from those bounds, and only the columns whose bound may reach
+// tau are scored exactly (a handful a row).  Rows whose scores fill fewer
+// than k chunks run topk_select.cuh's two-level selection in the same
+// launch.  What bounds it now is the latency of its phases, each a chain
+// of dependent steps in 16 warps an SM (the loads, the warp sort's
+// shuffles, tau's lifting, the exact scores' reloads and expf/log1pf,
+// the compaction, the ranks), and the launch: not the bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "dtype.cuh"
-#include "topk_select.cuh"
+#include "topk_filter.cuh"
 
 namespace {
 
@@ -34,28 +41,45 @@ using pafc::kChunk;
 using pafc::kSelThreads;
 using pafc::to_f32;
 
+// score = logaddexp(a, b) = max(a, b) + log1pf(expf(-|a - b|)), whose
+// second term lies in [0, ln 2]: max(a, b) is a lower bound within 0.7 of
+// it, -inf exactly where the score is; NaN stands where a - b, and so the
+// score, is NaN.
+template <typename T>
+struct FusedScore {
+  static constexpr bool kBounded = true;
+  static constexpr float kMargin = 0.7f;
+  const T* lrow;
+  const T* crow;
+  float log_tw, log_cw;
+  __device__ float operator()(int n) const {
+    return pafc::logaddexp(log_tw + to_f32(__ldg(lrow + n)), log_cw + to_f32(__ldg(crow + n)));
+  }
+  __device__ float low(int n) const {
+    const float a = log_tw + to_f32(__ldg(lrow + n)), b = log_cw + to_f32(__ldg(crow + n));
+    const float m = fmaxf(a, b), d = a - b;
+    return (m == -INFINITY) | (d == d) ? m : __int_as_float(0x7fffffff);
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kSelThreads)
     fused_topk_kernel(int V, int Vp, int n_rep, int k, const T* __restrict__ logp, int logp_ld,
                       const T* __restrict__ ctc, int ctc_ld, float log_tw, float log_cw,
                       float* __restrict__ vals, int* __restrict__ idx) {
-  extern __shared__ float row[];  // Vp scores, then the chunk maxima / k*128 survivors
-  __shared__ pafc::SelectShared sh;
+  extern __shared__ __align__(16) float row[];  // Vp scores, then the selection's scratch
+  __shared__ pafc::FilterShared sh;
   const int r = blockIdx.x;
-  const T* lrow = logp + (long long)r * logp_ld;
-  const T* crow = ctc + (long long)(r / n_rep) * ctc_ld;
-  for (int n = threadIdx.x; n < Vp; n += kSelThreads)
-    row[n] = n < V ? pafc::logaddexp(log_tw + to_f32(lrow[n]), log_cw + to_f32(crow[n]))
-                   : -INFINITY;
-  __syncthreads();
-  pafc::select_topk_row(row, V, Vp, k, vals + (long long)r * k, idx + (long long)r * k, sh);
+  const FusedScore<T> score{logp + (long long)r * logp_ld, ctc + (long long)(r / n_rep) * ctc_ld,
+                            log_tw, log_cw};
+  pafc::filter_topk_row(score, row, V, Vp, k, vals + (long long)r * k, idx + (long long)r * k, sh);
 }
 
 template <typename T>
 int launch(int R, int V, int n_rep, int k, const void* logp, int logp_ld, const void* ctc,
            int ctc_ld, float log_tw, float log_cw, float* vals, int* idx, cudaStream_t stream) {
   const int Vp = (V + kChunk - 1) / kChunk * kChunk;
-  const size_t smem = pafc::select_smem_floats(Vp, k) * sizeof(float);
+  const size_t smem = pafc::filter_smem_floats(V, Vp, k) * sizeof(float);
   int err = pafc::allow_smem(fused_topk_kernel<T>, smem);
   if (err) return err;
   fused_topk_kernel<T><<<R, kSelThreads, smem, stream>>>(V, Vp, n_rep, k, (const T*)logp,

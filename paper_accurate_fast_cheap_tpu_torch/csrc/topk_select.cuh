@@ -1,8 +1,8 @@
-// Exact two-level vocab top-k over one row held in shared memory, the
-// selection shared by K4 (fused_topk.cu), K5 (topk.cu) and K2 (joint_topk.cu)
-// for k > 32.  Port of the TPU kernels' common `_select_phases`
-// (ops/topk_pallas.py in the JAX package) with the selection and tie rules
-// of `decode/rnnt_search.py:top_k_vocab`:
+// Exact two-level vocab top-k over one row held in shared memory: K2's
+// selection for k > 32 (joint_topk.cu), and that of the rows of K4 and K5
+// with fewer than k finite chunks (topk_filter.cuh).  Port of the TPU
+// kernels' common `_select_phases` (ops/topk_pallas.py in the JAX package)
+// with the selection and tie rules of `decode/rnnt_search.py:top_k_vocab`:
 //
 //   phase 1  128-wide chunk maxima,
 //   phase 2  the top-k chunks (ties: lowest chunk id), sorted ascending so

@@ -16,7 +16,7 @@ import torch
 
 from paper_accurate_fast_cheap_tpu_torch.ops import cuda_lib
 from paper_accurate_fast_cheap_tpu_torch.ops.topk import (
-    check_select, top_k_vocab_plain)
+    check_select, filter_smem_bytes, top_k_vocab_plain)
 
 _ARGTYPES = ([ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_void_p, ctypes.c_int]
@@ -63,7 +63,7 @@ def fused_top_k_vocab(logp: torch.Tensor, ctc: torch.Tensor, k: int,
     if logp.device.type != "cuda":
         return fused_top_k_vocab_plain(logp, ctc, k, log_tw, log_cw)
     R, V, B, n_rep = _check_shapes(logp, ctc, k)
-    check_select("fused_top_k_vocab", V, k)
+    check_select("fused_top_k_vocab", V, k, filter_smem_bytes)
     cuda_lib.check_device("fused_top_k_vocab", logp, ctc)
     if logp.dtype != ctc.dtype:
         raise ValueError(f"fused_top_k_vocab: logp and ctc must share a "

@@ -9,9 +9,10 @@ whose tie order is unspecified).
   ``ops/topk_pallas.py:_topk_kernel`` via ``top_k_vocab_pallas``): 128-wide
   chunk maxima, the top-k chunks (lowest chunk id on ties), then the top-k
   of the k*128 survivors gathered in ascending chunk order (lowest global
-  index on ties).  For a CPU tensor it runs :func:`top_k_vocab_plain`, which
-  is also the plain version of the selection K2 and K4 share
-  (``csrc/topk_select.cuh``).
+  index on ties).  The kernel selects by a threshold filter
+  (``csrc/topk_filter.cuh``, shared with K4) whose result is bit-identical.
+  For a CPU tensor it runs :func:`top_k_vocab_plain`, which is also the
+  plain version of K2's and K4's selections.
 * :func:`stable_top_k` -- ``jax.lax.top_k`` order (value descending, index
   ascending, no repeats) by pairwise ranks, for small last axes.
 """
@@ -68,21 +69,39 @@ def top_k_vocab_plain(x: torch.Tensor, k: int, chunk: int = 128):
     return vals, (chunk_of * chunk + loc % chunk).to(torch.int32)
 
 
+def filter_capacity(V: int, k: int) -> int:
+    """Most candidates the threshold filter of K4 and K5 gathers for a row
+    (``csrc/topk_filter.cuh``): the columns of k thread groups, each 4 of
+    every chunk its warp owns (8 warps), and never more than V."""
+    G = -(-V // LANES)
+    return min(V, k * 4 * -(-G // 8))
+
+
 def select_smem_bytes(V: int, k: int) -> int:
-    """Shared memory the CUDA block selection takes for a row of V scores
-    and k picks (``csrc/topk_select.cuh``: select_smem_floats): the row
-    padded to Vp, the chunk maxima or the k*128 survivors, then k picks
-    (value, position) and k chunk ids."""
+    """Shared memory the two-level block selection takes for a row of V
+    scores and k picks (``csrc/topk_select.cuh``: select_smem_floats; K2
+    for k > 32): the row padded to Vp, the chunk maxima or the k*128
+    survivors, then k picks (value, position) and k chunk ids."""
     Vp = -(-V // LANES) * LANES
     return 4 * (Vp + max(Vp // LANES, k * LANES) + 3 * k)
 
 
-def check_select(what: str, V: int, k: int) -> None:
-    """Raise unless the shared CUDA selection takes a row of V scores and
-    k picks: 1 <= k <= V, and the row plus its scratch fit shared memory."""
+def filter_smem_bytes(V: int, k: int) -> int:
+    """Shared memory K4 and K5 take (``csrc/topk_filter.cuh``:
+    filter_smem_floats): the two-level selection's, which their rows short
+    of k finite chunks run, or the row and the filter's candidate keys (8
+    bytes each), whichever is larger."""
+    Vp = -(-V // LANES) * LANES
+    return max(select_smem_bytes(V, k), 4 * Vp + 8 * filter_capacity(V, k))
+
+
+def check_select(what: str, V: int, k: int, smem=select_smem_bytes) -> None:
+    """Raise unless a CUDA selection takes a row of V scores and k picks:
+    1 <= k <= V, and ``smem(V, k)`` bytes (the row plus its scratch) fit
+    shared memory."""
     if not 0 < k <= V:
         raise ValueError(f"{what}: k={k} outside 1..V={V}")
-    if select_smem_bytes(V, k) > SMEM_BYTES:
+    if smem(V, k) > SMEM_BYTES:
         raise ValueError(f"{what}: a row of V={V} with k={k} does not fit "
                          f"the selection's {SMEM_BYTES} bytes of shared "
                          f"memory")
@@ -99,7 +118,7 @@ def top_k_vocab(x: torch.Tensor, k: int):
     if x.device.type != "cuda":
         return top_k_vocab_plain(x, k)
     lead, V = x.shape[:-1], x.shape[-1]
-    check_select("top_k_vocab", V, k)
+    check_select("top_k_vocab", V, k, filter_smem_bytes)
     code = cuda_lib.dtype_code(x.dtype)
     xr = x.reshape(-1, V)
     if xr.stride(1) != 1:

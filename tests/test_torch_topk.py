@@ -161,17 +161,127 @@ def test_joint_top_k_wide_beam_matches_jax(k):
 
 
 def test_check_select_takes_any_k_that_fits():
-    """The CUDA selection serves every k whose row and scratch fit the
-    block's shared memory (k = 40, 128 and 256 at the flagship's V), and
-    refuses a k past V or a row too wide to stage."""
-    for k in (1, 8, 40, 128, 256):
-        t_topk.check_select("t", 5002, k)
-    with pytest.raises(ValueError, match="outside 1..V"):
-        t_topk.check_select("t", 100, 101)
-    with pytest.raises(ValueError, match="does not fit"):
-        t_topk.check_select("t", 60000, 8)
-    with pytest.raises(ValueError, match="does not fit"):
-        t_topk.check_select("t", 5002, 1024)
+    """The CUDA selections (K2's two-level one, K4's and K5's filter) serve
+    every k whose row and scratch fit the block's shared memory (k = 40,
+    128 and 256 at the flagship's V), and refuse a k past V or a row too
+    wide to stage."""
+    for smem in (t_topk.select_smem_bytes, t_topk.filter_smem_bytes):
+        for k in (1, 8, 40, 128, 256):
+            t_topk.check_select("t", 5002, k, smem)
+        with pytest.raises(ValueError, match="outside 1..V"):
+            t_topk.check_select("t", 100, 101, smem)
+        with pytest.raises(ValueError, match="does not fit"):
+            t_topk.check_select("t", 60000, 8, smem)
+        with pytest.raises(ValueError, match="does not fit"):
+            t_topk.check_select("t", 5002, 1024, smem)
+
+
+_SENTINEL = -2 ** 63                 # below every key: the kernel's key 0
+
+
+def _filter_keys(x, Vp):
+    """(value desc, index asc) keys of the scores of x, padded to Vp: the
+    monotone value bits (-0 as +0) above the inverted index, in int64;
+    the sentinel for -inf and the pad."""
+    xp = torch.nn.functional.pad(x, (0, Vp - x.shape[1]), value=-math.inf)
+    n = torch.arange(Vp)
+    bits = torch.where(xp == 0, 0.0, xp).view(torch.int32).long() & 0xffffffff
+    u = torch.where(bits >= 2 ** 31, 0xffffffff - bits, bits + 2 ** 31)
+    return xp, torch.where(xp > -math.inf,
+                           (u - 2 ** 31) * 2 ** 32 + (2 ** 32 - 1 - n),
+                           _SENTINEL)
+
+
+def _filter_model(x, k, low=None):
+    """K4's and K5's threshold filter (``csrc/topk_filter.cuh``) on f32 rows
+    x (R, V), as the kernel computes it: thread group (warp c % 8, lane
+    n % 32) of column n in chunk c; a key per score ordering (value desc,
+    index asc); tau = the k-th best group key (none past 256 groups or
+    short of k groups) -- of the lower bounds ``low`` where K4 stages them
+    (max of the logaddexp's operands); the candidates = the scores whose
+    key is >= tau; their exact top-k.  Returns (vals, idx, degenerate,
+    n_cand): a degenerate row (fewer than k chunks holding a score, or k
+    scores on the direct path) runs the two-level selection instead."""
+    R, V = x.shape
+    G = -(-V // 128)
+    Vp = G * 128
+    direct = V <= 8 * 128 or k >= G
+    xp, key = _filter_keys(x, Vp)
+    fin = key > _SENTINEL
+    n_fin = fin.sum(-1) if direct else fin.view(R, G, 128).any(-1).sum(-1)
+    _, gsrc = (xp, key) if low is None else _filter_keys(low, Vp)
+    n = torch.arange(Vp)
+    group = ((n // 128) % 8 * 32 + n % 32).expand(R, Vp)
+    gkey = torch.full((R, 256), _SENTINEL).scatter_reduce(
+        1, group, gsrc, "amax")
+    tau = (gkey.sort(-1, descending=True).values[:, k - 1:k] if k <= 256
+           else torch.full((R, 1), _SENTINEL))
+    cand = fin & (key >= tau)
+    top = torch.where(cand, key, _SENTINEL).sort(-1, descending=True).values
+    idx = (2 ** 32 - 1 - (top[:, :k] & 0xffffffff)).clamp(0, Vp - 1)
+    return (torch.gather(xp, 1, idx), idx.to(torch.int32), n_fin < k,
+            cand.sum(-1))
+
+
+def _filter_rows(V, k, seed):
+    """Rows of one (11, V) f32 array: random scores, integer ties, a -inf
+    tail, a dead row, rows finite in fewer than k (and in k - 1) chunks,
+    in k chunks, short of k finite scores, one finite score per chunk
+    (the groups of lane 0: fewer than k groups hold a finite score), and
+    signed zeros."""
+    rng = np.random.RandomState(seed)
+    G = -(-V // 128)
+    x = (rng.randn(11, V) * 5).astype(np.float32)
+    x[1] = rng.randint(-6, 6, size=V)
+    x[2, V // 3:] = -np.inf
+    x[3] = -np.inf
+    for r, c in ((4, 3), (5, k - 1), (6, k)):
+        keep = np.zeros(G, bool)
+        keep[rng.permutation(G)[:min(c, G)]] = True
+        x[r, ~np.repeat(keep, 128)[:V]] = -np.inf
+    few = rng.permutation(V)[:max(k - 1, 1)]
+    x[7] = -np.inf
+    x[7, few] = rng.randn(few.size)
+    x[8] = -np.inf
+    x[8, ::128] = rng.randint(-2, 2, size=G)
+    x[9] = rng.randint(-1, 2, size=V) * 0.0      # +0 and -0 tie
+    x[10] = rng.randint(0, 2, size=V) * 1e-3
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("V", [600, 1664, 2048, 5002])
+@pytest.mark.parametrize("k", [1, 8, 40, 128])
+@pytest.mark.parametrize("bounded", [False, True])
+def test_filter_selection_identity(V, k, bounded):
+    """The identity K5 (and K4, whose tau comes from lower bounds) rests
+    on: on every row the kernel does not flag, the exact top-k of the
+    candidates equals ``top_k_vocab_plain`` (values bit for bit, indices)
+    and is served from the candidate space shared memory was sized for
+    (``ops/topk.filter_capacity``) -- past it (K4 only) the kernel makes
+    every score exact and selects again, as K5 does -- so every row where
+    they differ is flagged; and the flag is needed (the dead row differs).
+    K4's rows are logaddexp(a, b) of two such rows, bounded by max(a, b)."""
+    x = _filter_rows(V, k, seed=V + k)
+    low = None
+    if bounded:
+        b = _filter_rows(V, k, seed=V + k + 1) - 3
+        low = torch.maximum(x, b)
+        x = torch.logaddexp(x, b)
+    vals, idx, degenerate, n_cand = _filter_model(x, k, low)
+    cap = t_topk.filter_capacity(V, k)
+    if bounded:
+        retry = n_cand > cap
+        exact = _filter_model(x, k)
+        vals[retry], idx[retry], n_cand[retry] = (
+            exact[0][retry], exact[1][retry], exact[3][retry])
+    vp, ip = t_topk.top_k_vocab_plain(x, k)
+    same = (idx == ip).all(-1) & (vals.view(torch.int32)
+                                  == vp.view(torch.int32)).all(-1)
+    assert bool(same[~degenerate].all())
+    assert bool(degenerate[3]) and not bool(same[3])     # the dead row
+    kept = n_cand[~degenerate]
+    assert bool((kept >= k).all())
+    assert bool((kept <= cap).all())
 
 
 def _mixed_rows(V, seed):
