@@ -24,15 +24,23 @@ Phases, each fatal on failure (no phase is skipped or caught):
      backward's time;
   4. reference: a small f32 decode of the flagship (standard joint, under
      the beam's three top-k routes) and of its HAT twin, the card against
-     the CPU;
+     the CPU; then the same for the paper's attention baselines at full
+     width (the MHA conformer transducer of
+     conformer_ds4k31nc_12le_trans_longform.yaml's encoder with the
+     flagship's head, and LCA at context 16 with 1 global token on its
+     weights) and the direction-dropout bi-RWKV encoder at eval with
+     alt_decoding;
   5. the main path at the flagship's full width: random weights from a
      seed, synthetic audio, fbank -> CMVN -> encoder -> CTC -> prefix beam
-     (beam 8) -> finalize, with the kernels' launch counters checked;
+     (beam 8) -> finalize, with the kernels' launch counters checked; then
+     the MHA baseline and LCA 256 + 1 global token on its weights at the
+     same geometry (no K1), beside the flagship's encoder seconds;
   6. the recognize_wav CLI at full width, 32 x 90 s windows of one WAV, for
      the HAT and the standard flagship, with the counters, the TXT and the
-     CTM checked; then at beam 40 on 2 windows in f32, its own route (K2)
-     against the xla route (K5), the TXT byte for byte, and the xla route
-     twice, the same tokens;
+     CTM checked, and with --encoder_context_size 256
+     --encoder_global_tokens 1 on the MHA checkpoint; then at beam 40 on 2
+     windows in f32, its own route (K2) against the xla route (K5), the
+     TXT byte for byte, and the xla route twice, the same tokens;
   7. the crash-repro tool's five cases (tools/repro_tpu_worker_crash.py):
      pinned_bisect (K7), v7_encoder and pallas_lf (K1), sort_topk (K5) and
      pinned_outer_jit at 4 x 9000 frames (K1-K3), with the counters;
@@ -41,9 +49,10 @@ Phases, each fatal on failure (no phase is skipped or caught):
      2-15 s, batch 16, beam 8, bf16, each of the four modes with the
      counters; then the four modes in f32 on 2 utterances, the card's
      text files against the CPU's, byte for byte;
-  9. training reference: one f32 step of the flagship and of the paper's
-     config cut to 2 encoder and 1 + 1 decoder blocks (loss, gradient
-     norm, parameters after one Adam step), the card against the CPU;
+  9. training reference: one f32 step of the flagship, of the paper's
+     config and of the MHA baseline's short-form YAML, both cut to 2
+     encoder and 1 + 1 decoder blocks (loss, gradient norm, parameters
+     after one Adam step), the card against the CPU;
  10. training at full width: train_bench's main on the flagship, B16 x
      1500 frames x 40 labels, mixed precision, with the counters checked;
  11. the K6 path: the same step with the encoder's dropout at 0 and every
@@ -1062,19 +1071,22 @@ CONFIG = {
 HAT_CONFIG = dict(CONFIG, joint_conf={"join_dim": 640, "hat_joint": True})
 
 
-def build_model(hat: bool = False):
-    """The flagship (or its HAT twin) at full width, random weights from a
-    seed, blank bias +2.5 on both output heads (a speech-like emission
-    rate, as bench.py).  HAT's blank is a sigmoid, not one logit of a
-    V-way softmax: the same blank share takes the logit 2.5 - log(V - 1)."""
+def build_model(hat: bool = False, config=None, seed=None, label=None):
+    """The flagship (or its HAT twin, or the transducer of ``config``) at
+    full width, random weights from a seed, blank bias +2.5 on both output
+    heads (a speech-like emission rate, as bench.py).  HAT's blank is a
+    sigmoid, not one logit of a V-way softmax: the same blank share takes
+    the logit 2.5 - log(V - 1)."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.models import factory
 
     t0 = time.perf_counter()
+    if config is None:
+        config = HAT_CONFIG if hat else CONFIG
     model, _ = factory.init_model(
-        HAT_CONFIG if hat else CONFIG, VOCAB, 80,
-        generator=torch.Generator().manual_seed(2 if hat else 1))
+        config, VOCAB, 80, generator=torch.Generator().manual_seed(
+            seed if seed is not None else 2 if hat else 1))
     with torch.no_grad():
         if hat:
             model.joint.blank_pred.bias[0] += 2.5 - float(np.log(VOCAB - 1))
@@ -1082,9 +1094,72 @@ def build_model(hat: bool = False):
             model.joint.ffn_out.bias[0] += 2.5
         model.ctc.ctc_lo.bias[0] += 2.5
     n = sum(p.numel() for p in model.parameters())
-    log(f"model: {'HAT' if hat else 'flagship'} transducer, {n / 1e6:.1f} M "
-        f"parameters, built in {time.perf_counter() - t0:.1f} s")
+    label = label or ("HAT" if hat else "flagship")
+    log(f"model: {label} transducer, {n / 1e6:.1f} M parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
     return model
+
+
+# The paper's attention baselines (the MHA conformer transducer's encoder,
+# examples/gigaspeech/conf/conformer_ds4k31nc_12le_trans_longform.yaml, with
+# the flagship's predictor and joint; LCA on the same weights) and the
+# direction-dropout bi-RWKV encoder, read from the repo's YAMLs.
+MHA_YAML = "examples/gigaspeech/conf/conformer_ds4k31nc_12le_trans_longform.yaml"
+MHA_SF_YAML = (
+    "examples/gigaspeech/conf/conformer_ds4k31nc_12le_trans_shortform.yaml")
+DLDB_YAML = ("examples/gigaspeech/conf/"
+             "rwkvbi_dldb_ds4k31nc_12le_trans_shortform.yaml")
+LCA_CONTEXT = 256   # the paper's LCA: 256 frames each side, 1 global token
+
+
+def _yaml(path: str) -> dict:
+    from paper_accurate_fast_cheap_tpu_torch.utils.config import load_config
+
+    return load_config(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), path))
+
+
+def damp_attention(model, scale: float = 0.1):
+    """Scale each attention module's output projection by ``scale``.
+    Random attention over a 90 s window (2248 frames) averages its values
+    into a near-constant row, which flattens the encoder output over time
+    (std over time 0.066 against the flagship's 0.86 at 30 s on the CPU)
+    and makes the blank-biased beam emit one token a frame, where no CTC
+    alignment exists (PERF.md, PR 9 call 1); damped, it varies as the
+    flagship's does.  Returns the model."""
+    import torch
+
+    with torch.no_grad():
+        for name in model.encoder.attention_names:
+            getattr(model.encoder, name).linear_out.weight.mul_(scale)
+    return model
+
+
+def attention_config(yaml_path: str = MHA_YAML, **encoder) -> dict:
+    """The YAML's encoder with the flagship's predictor and joint."""
+    return dict(CONFIG, encoder_conf=dict(_yaml(yaml_path)["encoder_conf"],
+                                          **encoder))
+
+
+def lca_config(context: int, global_tokens: int = 1) -> dict:
+    return attention_config(
+        selfattention_layer_type="limited_rel_selfattn",
+        att_context_size=[context, context], global_tokens=global_tokens,
+        global_tokens_spacing=1)
+
+
+def as_lca(mha_model, context: int, global_tokens: int = 1):
+    """The MHA model's weights in its LCA twin (the same parameters), on
+    the MHA model's device and dtype."""
+    from paper_accurate_fast_cheap_tpu_torch.convert import (
+        as_limited_context)
+    from paper_accurate_fast_cheap_tpu_torch.models import factory
+
+    w = next(mha_model.parameters())
+    model, _ = factory.init_model(lca_config(context, global_tokens), VOCAB,
+                                  80, device="cpu")
+    model.load_state_dict(as_limited_context(mha_model.state_dict()))
+    return model.to(device=w.device, dtype=w.dtype).eval()
 
 
 def counters():
@@ -1242,6 +1317,73 @@ def phase_reference(model, hat_model, rng):
     return ok, k5_launches
 
 
+def attention_reference_models(mha_model) -> dict:
+    """The attention reference's models, f32, on the card: the MHA
+    baseline, LCA at context 16 with 1 global token on its weights, and the
+    direction-dropout bi-RWKV at eval with ``alt_decoding`` (even layers
+    L2R, odd layers R2L), its bf16 cast off as in phase_reference."""
+    from paper_accurate_fast_cheap_tpu_torch.models.rwkv import RWKVAttention
+
+    dldb = build_model(config=attention_config(DLDB_YAML), seed=6,
+                       label="direction-dropout bi-RWKV")
+    for mod in dldb.modules():
+        if isinstance(mod, RWKVAttention):
+            mod.alt_decoding = True
+            mod.do_bfloat16 = False
+    return {"MHA": mha_model, "LCA 16 + 1 global token": as_lca(mha_model, 16),
+            "rwkv_tmix60_dir_layer_drop_both, alt_decoding": dldb}
+
+
+def phase_attention_reference(models, rng):
+    """Small input, f32 (2 x 3 s: 73 and 53 encoder frames), the card
+    against the CPU, for each model of ``models`` (label -> model, on the
+    card): encoder, CTC and the device beam (``auto``: K2 and K3).  With
+    LCA at context 16 and 1 global token the band, the padded last block
+    and the global path all act.  Returns ok."""
+    import copy
+
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.decode import rnnt_search
+    from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
+
+    B, S = 2, 3 * 16000
+    wavs = (rng.randn(B, S) * 0.1).astype(np.float32)
+    lens = np.asarray([S, S - 8000], np.int64)
+    stats = _cmvn_stats(pipeline.make_feature_fn({}, None, device="cpu"),
+                        torch.from_numpy(wavs), torch.from_numpy(lens))
+    ok = True
+    for label, model in models.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            m = model if dev == "cuda" else copy.deepcopy(model).to("cpu")
+            feats, flens = pipeline.make_feature_fn({}, stats, device=dev)(
+                torch.from_numpy(wavs).to(dev), torch.from_numpy(lens).to(dev))
+            zero_counts()
+            enc, elens = m.forward_encoder(feats, flens)
+            logp = m.ctc_logprobs(enc)
+            res = rnnt_search.finalize_device_beam(beam(m, enc, elens, logp))
+            out[dev] = (res, enc.float().cpu(), logp.float().cpu(),
+                        read_counts())
+        (rg, eg, lg, counts), (rc, ec, lc, _) = out["cuda"], out["cpu"]
+        enc_err = float((eg - ec).abs().max())
+        ctc_err = float((lg - lc).abs().max())
+        same = all(a.tokens == b.tokens for a, b in zip(rg, rc))
+        score_ok = all(np.allclose(a.nbest_scores[:1], b.nbest_scores[:1],
+                                   rtol=1e-4) for a, b in zip(rg, rc))
+        good = (enc_err <= 1e-3 and ctc_err <= 1e-3 and same and score_ok
+                and any(r.tokens for r in rg) and counts["joint_topk"] > 0
+                and counts["lstm_step"] > 0)
+        ok = ok and good
+        log(f"attention reference {label} (B={B}, 3 s, {eg.shape[1]} "
+            f"frames, f32, card vs CPU plain): encoder max_abs_err "
+            f"{enc_err:.3e}, ctc {ctc_err:.3e} (<= 1e-3), tokens identical "
+            f"{same}, best scores within 1e-4 rel {score_ok}, tokens per "
+            f"utterance {[len(r.tokens) for r in rg]}, card counters "
+            f"{json.dumps(counts)} {'ok' if good else 'FAIL'}")
+    return ok
+
+
 def _cmvn_stats(featurize, wavs, lens):
     """Global CMVN (mean, istd) from the features of the data itself."""
     f, _ = featurize(wavs, lens)
@@ -1249,8 +1391,11 @@ def _cmvn_stats(featurize, wavs, lens):
             (1.0 / f.std(dim=(0, 1))).cpu().numpy())
 
 
-def phase_main(model, rng, batch):
-    """The flagship window batch in bf16: one warm-up, one timed run."""
+def phase_main(model, rng, batch, label="flagship", wkv=24, split=True):
+    """The main path's window batch in bf16 (the flagship, or ``label``'s
+    model launching K1 ``wkv`` times a forward): one warm-up, one timed
+    run; with ``split``, the beam's device time by kernel.  Returns (ok,
+    counts, stages)."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
@@ -1278,7 +1423,7 @@ def phase_main(model, rng, batch):
     counts = read_counts()
     frames = enc.shape[1]
     want = dict.fromkeys(counts, 0)
-    want.update(wkv6_fwd=24, joint_topk=frames, lstm_step=frames + 1)
+    want.update(wkv6_fwd=wkv, joint_topk=frames, lstm_step=frames + 1)
     audio_s = batch * WINDOW_S
     ntok = float(np.mean([len(r.tokens) for r in res]))
     hyps = carry["hyps"]
@@ -1289,7 +1434,8 @@ def phase_main(model, rng, batch):
                   and torch.isfinite(logp.float()).all()
                   and all(np.isfinite(r.score) for r in res))
     ids_ok = all(0 < t < VOCAB for r in res for t in r.tokens)
-    log(f"main path: {batch} windows x {WINDOW_S} s = {audio_s} s audio, "
+    log(f"main path, {label}: {batch} windows x {WINDOW_S} s = {audio_s} "
+        f"s audio, "
         f"{frames} encoder frames, beam {BEAM}, bf16; warm-up "
         f"{warm_s:.2f} s, timed {wall:.3f} s, 1/RTF {audio_s / wall:.1f}, "
         f"mean tokens/window {ntok:.1f}, peak memory "
@@ -1299,6 +1445,10 @@ def phase_main(model, rng, batch):
         + f"; beam per frame {stages['beam'] / frames * 1e3:.4f} ms")
     log(f"launch counters {json.dumps(counts)}, expected {json.dumps(want)}; "
         f"shapes {shape_ok}, finite {finite}, token ids in range {ids_ok}")
+    ok = (counts == want and shape_ok and finite and ids_ok and ntok > 0
+          and frames == CLI_FRAMES)
+    if not split:
+        return ok, counts, stages
     # the beam's device time per frame by kernel, over its first 200 frames
     # (outside the counted run): what the card is busy with while the host
     # enqueues the frame's bookkeeping
@@ -1312,8 +1462,27 @@ def phase_main(model, rng, batch):
         f"{busy:.4f} ms of {stages['beam'] / frames * 1e3:.4f} ms wall; "
         "top kernels (ms per frame) " + json.dumps(
             {k: round(v / cut, 4) for k, v in top}))
-    ok = (counts == want and shape_ok and finite and ids_ok and ntok > 0
-          and frames == CLI_FRAMES)
+    return ok, counts, stages
+
+
+def phase_main_attention(mha_model, rng, batch, flagship_stages):
+    """The main path with the MHA baseline's encoder, then with LCA 256 + 1
+    global token on the same weights (no K1: wkv6_fwd 0), beside the
+    flagship's encoder seconds.  Returns (ok, {label: counts})."""
+    import torch
+
+    ok, counts = True, {}
+    for label in ("MHA", f"LCA {LCA_CONTEXT} + 1 global token"):
+        model = (mha_model if label == "MHA"
+                 else as_lca(mha_model, LCA_CONTEXT))
+        torch.cuda.empty_cache()
+        good, counts[label], stages = phase_main(model, rng, batch, label,
+                                                 wkv=0, split=False)
+        ok = ok and good
+        log(f"main path, {label}: encoder+ctc {stages['encoder+ctc']:.4f} s "
+            f"against the flagship's {flagship_stages['encoder+ctc']:.4f} s "
+            f"{'ok' if good else 'FAIL'}")
+        del model
     return ok, counts
 
 
@@ -1424,9 +1593,10 @@ def phase_cli(paths, card: str):
     return ok, hat_counts
 
 
-def _cli_run(recognize_wav, paths, name, route, card, align_s):
-    """One CLI run, counters zeroed just before and read just after.
-    Returns (ok, counts)."""
+def _cli_run(recognize_wav, paths, name, route, card, align_s,
+             extra=(), wkv=24):
+    """One CLI run (``extra`` flags added), counters zeroed just before and
+    read just after.  Returns (ok, counts)."""
     import torch
 
     out = os.path.join(os.path.dirname(paths["wav"]), f"out_{name}")
@@ -1437,19 +1607,21 @@ def _cli_run(recognize_wav, paths, name, route, card, align_s):
         "--checkpoint", paths[name + ".pt"], "--wav", paths["wav"],
         "--output_dir", out, "--mode", "rnnt_beam_search",
         "--batch_size", str(CLI_WINDOWS), "--chunk_size",
-        str(CLI_CHUNK), "--beam_size", str(BEAM), "--precision", "bf16"])
+        str(CLI_CHUNK), "--beam_size", str(BEAM), "--precision", "bf16",
+        *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
     want = dict.fromkeys(counts, 0)
-    want.update({"wkv6_fwd": 24, "lstm_step": CLI_FRAMES + 1,
+    want.update({"wkv6_fwd": wkv, "lstm_step": CLI_FRAMES + 1,
                  route: CLI_FRAMES})
     with open(os.path.join(out, "episode.txt")) as f:
         words = f.read().split()
     ctm_ok, n_ctm = check_ctm(os.path.join(out, "episode.ctm"),
                               "episode", paths["audio_s"])
     good = rc == 0 and counts == want and len(words) > 0 and ctm_ok
-    log(f"CLI {name}: recognize_wav.main {wall:.2f} s (model load "
+    log(f"CLI {name} {' '.join(extra)}: recognize_wav.main {wall:.2f} s "
+        f"(model load "
         f"included), launch counters {json.dumps(counts)}, expected "
         f"{json.dumps(want)}; TXT {len(words)} words, CTM {n_ctm} lines "
         f"well formed {ctm_ok}; Viterbi alignment per batch "
@@ -1458,6 +1630,18 @@ def _cli_run(recognize_wav, paths, name, route, card, align_s):
         for ln in f.read().splitlines():
             log(f"CLI {name} .rtf [{card}]: {ln}")
     return good, counts
+
+
+def phase_cli_lca(paths, card: str) -> bool:
+    """recognize_wav on the MHA checkpoint with ``--encoder_context_size
+    256 --encoder_global_tokens 1`` (the JAX CLI's LCA switch): the same
+    WAV and batch as phase_cli, no K1."""
+    from paper_accurate_fast_cheap_tpu_torch.bin import recognize_wav
+
+    ok, _ = _cli_run(recognize_wav, paths, "mha", "joint_topk", card, [],
+                     extra=("--encoder_context_size", str(LCA_CONTEXT),
+                            "--encoder_global_tokens", "1"), wkv=0)
+    return ok
 
 
 BEAM_WIDE = 40  # past the 32 the port's selection once capped k at
@@ -1893,17 +2077,17 @@ PAPER_YAML = "examples/gigaspeech/conf/rwkvbi_ds4k31nc_12le_trans_shortform.yaml
 # the paper's configuration cut to 2 encoder blocks and 1 + 1 decoder
 # blocks at its full widths (the decoder-bearing training reference)
 def _small_paper_config() -> dict:
-    conf = paper_config()
+    return _small_config(paper_config())
+
+
+def _small_config(conf: dict) -> dict:
     return dict(conf, encoder_conf=dict(conf["encoder_conf"], num_blocks=2),
                 decoder_conf=dict(conf["decoder_conf"], num_blocks=1,
                                   r_num_blocks=1))
 
 
 def paper_config() -> dict:
-    from paper_accurate_fast_cheap_tpu_torch.utils.config import load_config
-
-    return load_config(os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), PAPER_YAML))
+    return _yaml(PAPER_YAML)
 
 
 def phase_tool():
@@ -2227,26 +2411,42 @@ def main() -> int:
 
     rng = np.random.RandomState(0)
     model, hat_model = build_model(), build_model(hat=True)
+    mha_config = attention_config()
+    mha_model = damp_attention(build_model(config=mha_config, seed=4,
+                                           label="MHA baseline"))
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         # the checkpoints are saved in f32, before the main path casts
         paths = write_cli_inputs(work, rng, {"standard": (model, CONFIG),
-                                             "hat": (hat_model, HAT_CONFIG)})
+                                             "hat": (hat_model, HAT_CONFIG),
+                                             "mha": (mha_model, mha_config)})
         ref_ok, k5_launches = phase_reference(model, hat_model, rng)
         if not ref_ok:
             failed.append("card vs CPU reference")
         hat_model = hat_model.cpu()
+        # the attention baselines and direction dropout draw their own data
+        att_rng = np.random.RandomState(9)
+        if not phase_attention_reference(attention_reference_models(
+                mha_model), att_rng):
+            failed.append("attention reference")
         if args.batch != 32:
             log(f"main path cut: batch {args.batch} (flagship point: 32 x "
                 f"{WINDOW_S} s)")
-        ok, counts = phase_main(model, rng, args.batch)
+        ok, counts, stages = phase_main(model, rng, args.batch)
         if not ok:
             failed.append("main path")
         del model
+        att_ok, att_counts = phase_main_attention(mha_model, att_rng,
+                                                  args.batch, stages)
+        if not att_ok:
+            failed.append("main path, MHA and LCA")
+        del mha_model
         torch.cuda.empty_cache()
         cli_ok, hat_counts = phase_cli(paths, card)
         if not cli_ok:
             failed.append("recognize_wav CLI")
+        if not phase_cli_lca(paths, card):
+            failed.append("recognize_wav CLI, LCA on the MHA checkpoint")
         if not phase_beam40(paths, rng):
             failed.append(f"recognize_wav at beam {BEAM_WIDE}")
         tool_ok, k7_launches = phase_tool()
@@ -2261,6 +2461,10 @@ def main() -> int:
                                      "paper config, 2 encoder and 1 + 1 "
                                      "decoder blocks"):
             failed.append("training reference, attention decoder")
+        if not phase_train_reference(_small_config(_yaml(MHA_SF_YAML)),
+                                     f"{MHA_SF_YAML}, 2 encoder and 1 + 1 "
+                                     "decoder blocks"):
+            failed.append("training reference, MHA")
         train_ok, train_counts = phase_train(work)
         if not train_ok:
             failed.append("training")

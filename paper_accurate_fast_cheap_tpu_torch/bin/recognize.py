@@ -14,9 +14,8 @@ there, unused) plus ``--device`` (``cuda`` unless ``cpu`` is asked for)
 and ``--precision`` (``fp32``, the checkpoint's own dtype as in the JAX
 CLI, or ``bf16`` weights and features).  The checkpoint is the port's own:
 a ``state_dict`` file written with ``torch.save``;
-``convert.state_dict_from_jax`` makes one from a JAX model's parameters;
-WeNet checkpoints wait for the port of ``tools/convert_checkpoint.py``
-(ROADMAP Queue 1).
+``tools/convert_checkpoint.py`` makes one from a WeNet checkpoint and
+``convert.state_dict_from_jax`` from a JAX model's parameters.
 
 Usage:
   python -m paper_accurate_fast_cheap_tpu_torch.bin.recognize \\
@@ -74,10 +73,14 @@ def build_decode_assets(config, checkpoint: str, input_dim: int = 80,
     """Tokenizer, model (weights from ``checkpoint``, eval mode, on
     ``device``: ``cuda`` unless the caller asks for the CPU), model type,
     featurize function and the test-time dataset conf."""
+    from paper_accurate_fast_cheap_tpu_torch.convert import (
+        as_limited_context)
     from paper_accurate_fast_cheap_tpu_torch.frontend import cmvn as cmvn_lib
     from paper_accurate_fast_cheap_tpu_torch.frontend.pipeline import (
         make_feature_fn)
     from paper_accurate_fast_cheap_tpu_torch.models import factory
+    from paper_accurate_fast_cheap_tpu_torch.models.lca import (
+        LimitedRelPositionAttention)
     from paper_accurate_fast_cheap_tpu_torch.text.tokenizers import (
         init_tokenizer)
 
@@ -102,6 +105,11 @@ def build_decode_assets(config, checkpoint: str, input_dim: int = 80,
     model, model_type = factory.init_model(config, tokenizer.vocab_size(),
                                            input_dim, device="cpu")
     state = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    if any(isinstance(m, LimitedRelPositionAttention)
+           for m in model.modules()):
+        # an MHA checkpoint decodes with limited context (recognize_wav
+        # --encoder_context_size)
+        state = as_limited_context(state)
     model.load_state_dict(state, strict=True)
     model = model.to(dev).eval()
     featurize = make_feature_fn(dataset_conf, cmvn_stats, device=dev)

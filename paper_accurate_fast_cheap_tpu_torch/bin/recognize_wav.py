@@ -12,8 +12,11 @@ Same flags and defaults as the JAX CLI, plus ``--device`` (``cuda`` unless
 ``cpu`` is asked for).  ``--fuse``, ``--beam_unroll``,
 ``--align_max_tokens``, ``--wkv_impl`` and ``--rwkv_r`` choose how the JAX
 package dispatches to its TPU; they are accepted and do nothing here.
-``--beam_merge sort``, ``--seq_parallel`` > 1, ``--encoder_context_size``
-> 0 and ``--verbatimicity`` need modules not ported yet and raise.
+``--encoder_context_size`` N > 0 switches the encoder's self-attention to
+LCA with context (N, N) and ``--encoder_global_tokens`` global tokens, as
+the JAX CLI does; a rel-pos MHA checkpoint loads into it (the same
+parameters).  ``--beam_merge sort``, ``--seq_parallel`` > 1 and
+``--verbatimicity`` need modules not ported yet and raise.
 
 Usage:
   python -m paper_accurate_fast_cheap_tpu_torch.bin.recognize_wav \\
@@ -61,7 +64,7 @@ def get_args(argv=None):
     p.add_argument("--wkv_impl", default=None, choices=["pallas", "chunked"],
                    help="accepted, does nothing")
     p.add_argument("--encoder_context_size", type=int, default=0,
-                   help="LCA self-attention: not ported")
+                   help="switch self-attention to LCA with this context")
     p.add_argument("--encoder_global_tokens", type=int, default=0)
     p.add_argument("--encoder_global_tokens_spacing", type=int, default=1)
     p.add_argument("--fuse", default="auto",
@@ -119,15 +122,12 @@ def make_window_slicer(wav: np.ndarray, win_samples: int, device):
 def _check_flags(args) -> None:
     unported = []
     if args.beam_merge == "sort":
-        unported.append("--beam_merge sort (ROADMAP Queue 1: the sort "
-                        "merge)")
+        unported.append("--beam_merge sort (ROADMAP Queue 1, item 16: the "
+                        "sort merge)")
     if args.seq_parallel > 1:
         unported.append("--seq_parallel (ROADMAP Queue 1, item 14)")
-    if args.encoder_context_size > 0:
-        unported.append("--encoder_context_size (ROADMAP Queue 1, item 12: "
-                        "LCA)")
     if args.verbatimicity is not None:
-        unported.append("--verbatimicity (ROADMAP Queue 1, item 12: LSL "
+        unported.append("--verbatimicity (ROADMAP Queue 1, item 12b: LSL "
                         "encoders)")
     if unported:
         raise NotImplementedError("not ported yet: " + "; ".join(unported))
@@ -153,6 +153,14 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     config = load_config(args.config)
+    if args.encoder_context_size > 0:
+        n = args.encoder_context_size
+        config = dict(config, encoder_conf=dict(
+            config.get("encoder_conf", {}),
+            selfattention_layer_type="limited_rel_selfattn",
+            att_context_size=[n, n],
+            global_tokens=args.encoder_global_tokens,
+            global_tokens_spacing=args.encoder_global_tokens_spacing))
     tokenizer, model, model_type, featurize, dataset_conf = \
         build_decode_assets(config, args.checkpoint, device=dev)
     if args.precision == "bf16":

@@ -1,10 +1,11 @@
 """Weight bridge from the JAX package's flax parameter tree.
 
 The port names its submodules after the flax tree (``encoder.layer_{i}``,
-``encoder.RWKVAttention_{i}.tmix``, ``predictor.lstm_{i}.ih``,
-``joint.ffn_out``, ``decoder.left_decoder.layer_{i}.self_attn.linear_q``,
-...) for the ``Transducer`` and ``ASRModel`` trees, so the bridge only
-changes layouts:
+``encoder.RWKVAttention_{i}.tmix``,
+``encoder.RelPositionMultiHeadedAttention_{i}.linear_pos``,
+``predictor.lstm_{i}.ih``, ``joint.ffn_out``,
+``decoder.left_decoder.layer_{i}.self_attn.linear_q``, ...) for the
+``Transducer`` and ``ASRModel`` trees, so the bridge only changes layouts:
 
 * Dense ``kernel`` (in, out)          -> Linear ``weight`` (out, in)
 * Conv ``kernel`` (kh, kw, in, out)   -> Conv2d ``weight`` (out, in, kh, kw)
@@ -12,10 +13,10 @@ changes layouts:
 * LayerNorm ``scale`` and Embed ``embedding`` -> ``weight``
 * the LSTM recurrent matrix ``hh`` (H, 4H) -> (4H, H)
 
-Biases and the RWKV mixing parameters (``time_*``) keep their layout.  A
-leaf of any other name (a module the port does not have) raises KeyError.
-Loading WeNet checkpoints waits for the slice that ports
-``tools/convert_checkpoint.py``.
+Biases, the rel-pos attention's ``pos_bias_u`` and ``pos_bias_v`` (H, d_k)
+and the RWKV mixing parameters (``time_*``) keep their layout.  A leaf of
+any other name (a module the port does not have) raises KeyError.  WeNet
+checkpoints load through ``tools/convert_checkpoint.py``.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 
 # the leaves of the ported modules besides the RWKV's ``time_*``
-_LEAVES = ("bias", "kernel", "scale", "embedding", "hh")
+_LEAVES = ("bias", "kernel", "scale", "embedding", "hh", "pos_bias_u",
+           "pos_bias_v")
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -60,3 +62,15 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             arr = arr.T
         out[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+_MHA = "encoder.RelPositionMultiHeadedAttention_"
+_LCA = "encoder.LimitedRelPositionAttention_"
+
+
+def as_limited_context(state: Mapping[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """A rel-pos MHA model's state_dict under the names of its LCA twin
+    (``LimitedRelPositionAttention`` has the rel-pos MHA's parameters), so
+    an MHA checkpoint decodes with limited context."""
+    return {k.replace(_MHA, _LCA, 1): v for k, v in state.items()}

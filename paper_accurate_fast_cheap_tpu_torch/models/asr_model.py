@@ -3,9 +3,9 @@ the default ``model:`` of the configs).
 
 The loss is ``ctc_weight * ctc + (1 - ctc_weight) * att``, the attention
 branch on the (bi)transformer decoder with the reversed-label right decoder
-weighted by ``reverse_weight``.  The encoder is the conformer of the
-flagship family (``models/factory.py`` refuses the other families, ROADMAP
-Queue 1 item 12).  As in flax, the decoder's parameters exist only when the loss
+weighted by ``reverse_weight``.  The encoder is the conformer
+(``models/factory.py`` refuses the other families, ROADMAP Queue 1 item
+12b).  As in flax, the decoder's parameters exist only when the loss
 calls it: a ``decoder_conf`` with ``ctc_weight < 1`` (and its right half
 only for ``reverse_weight > 0``).
 """

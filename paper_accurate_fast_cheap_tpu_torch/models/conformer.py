@@ -1,13 +1,20 @@
-"""Conformer encoder with RWKV-6 attention (port of the full-context branch
-of the JAX ``models/conformer.py``).
+"""Conformer encoder with a swappable attention registry (port of the
+full-context branch of the JAX ``models/conformer.py``).
 
 Block order (pre-norm, LayerNorm eps 1e-5): macaron FFN x0.5 -> attention
 -> conv module -> FFN x0.5 -> final norm, with dropout on each branch
-before its residual add (active in ``.train()``).  Submodule names follow
-the flax tree (``embed``, ``layer_{i}``, ``RWKVAttention_{i}``,
+before its residual add (active in ``.train()``).  The attention registry
+is the JAX one: ``selfattn``, ``rel_selfattn``, ``espnet_rel_selfattn``
+(``models/attention.py``), ``limited_rel_selfattn`` (LCA with global
+tokens, ``models/lca.py``; its context and global tokens come from
+``rwkv_conf``) and the RWKV-6 directions (``models/rwkv.py``; the eval
+controls ``bidirectional_layers`` and ``alt_decoding`` come from
+``rwkv_conf`` too); ``mamba_att`` waits for ROADMAP Queue 1, item 12a.4.
+Submodule names follow the flax tree (``embed``, ``layer_{i}``,
+``RelPositionMultiHeadedAttention_{i}``, ``RWKVAttention_{i}``, ...,
 ``after_norm``) so ``convert.state_dict_from_jax`` is layout work only.  As
 in flax, the attention modules sit on the encoder, not inside their layers;
-layer i is called with ``RWKVAttention_{i}``.
+layer i is called with attention module i.
 """
 from __future__ import annotations
 
@@ -16,34 +23,66 @@ from typing import Any, Optional
 import torch
 import torch.nn as nn
 
+from paper_accurate_fast_cheap_tpu_torch.models.attention import (
+    ESPnetRelPositionMultiHeadedAttention, MultiHeadedAttention,
+    RelPositionMultiHeadedAttention)
 from paper_accurate_fast_cheap_tpu_torch.models.convolution import (
     ConvolutionModule, PositionwiseFeedForward)
 from paper_accurate_fast_cheap_tpu_torch.models.embedding import (
-    RelPositionalEncoding)
+    NoPositionalEncoding, PositionalEncoding, RelPositionalEncoding)
 from paper_accurate_fast_cheap_tpu_torch.models.layers import layer_norm
+from paper_accurate_fast_cheap_tpu_torch.models.lca import (
+    LimitedRelPositionAttention)
 from paper_accurate_fast_cheap_tpu_torch.models.rwkv import RWKVAttention
 from paper_accurate_fast_cheap_tpu_torch.models.subsampling import (
     Conv2dSubsampling4)
 from paper_accurate_fast_cheap_tpu_torch.utils.masks import make_pad_mask
 
+EMB_CLASSES = {
+    "abs_pos": PositionalEncoding,
+    "rel_pos": RelPositionalEncoding,
+    "no_pos": NoPositionalEncoding,
+}
+_MHA_CLASSES = {
+    "selfattn": MultiHeadedAttention,
+    "rel_selfattn": RelPositionMultiHeadedAttention,
+    "espnet_rel_selfattn": ESPnetRelPositionMultiHeadedAttention,
+}
 _DIRECTIONS = {
     "rwkv_tmix60": "uni",
     "rwkv_tmix60_bidirectional": "bi",
     "rwkv_tmix60_bidirectional2": "bi",
+    "rwkv_tmix60_dir_layer_drop": "dirdrop",
+    "rwkv_tmix60_dir_layer_drop_both": "dirdrop_both",
 }
 
 
 def _make_attention(layer_type: str, heads: int, d_model: int,
-                    num_blocks: int, layer_id: int, rwkv_conf: dict):
+                    dropout_rate: float, key_bias: bool, num_blocks: int,
+                    layer_id: int, rwkv_conf: dict) -> nn.Module:
+    if layer_type in _MHA_CLASSES:
+        return _MHA_CLASSES[layer_type](heads, d_model, dropout_rate,
+                                        key_bias)
+    if layer_type == "limited_rel_selfattn":
+        return LimitedRelPositionAttention(
+            heads, d_model, dropout_rate, key_bias,
+            context_size=rwkv_conf.get("att_context_size", (256, 256)),
+            global_tokens=rwkv_conf.get("global_tokens", 0),
+            global_tokens_spacing=rwkv_conf.get("global_tokens_spacing", 1))
     direction = _DIRECTIONS.get(layer_type)
-    if direction is None:
+    if direction is not None:
+        return RWKVAttention(
+            head_size=d_model // heads,
+            dim_att=d_model, n_layers=num_blocks, direction=direction,
+            layer_id=layer_id,
+            do_bfloat16=rwkv_conf.get("rwkv_do_bfloat16", True),
+            bidirectional_layers=rwkv_conf.get("bidirectional_layers"),
+            alt_decoding=rwkv_conf.get("alt_decoding", False))
+    if layer_type == "mamba_att":
         raise NotImplementedError(
-            f"attention type {layer_type!r} waits for a later slice")
-    return RWKVAttention(
-        head_size=d_model // heads,
-        dim_att=d_model, n_layers=num_blocks, direction=direction,
-        layer_id=layer_id,
-        do_bfloat16=rwkv_conf.get("rwkv_do_bfloat16", True))
+            "attention type 'mamba_att' waits for ROADMAP Queue 1, item "
+            "12a.4 (Mamba-2)")
+    raise NotImplementedError(f"attention type {layer_type!r}")
 
 
 class ConformerEncoderLayer(nn.Module):
@@ -68,11 +107,17 @@ class ConformerEncoderLayer(nn.Module):
         self.norm_final = ln()
         self.dropout = nn.Dropout(dropout_rate)
 
-    def forward(self, x, attn: nn.Module, pad_mask=None, lengths=None):
+    def forward(self, x, attn: nn.Module, att_mask=None, pos_emb=None,
+                pad_mask=None, lengths=None):
         drop = self.dropout
         x = x + 0.5 * drop(self.feed_forward_macaron(
             layer_norm(self.norm_ff_macaron, x)))
-        x = x + drop(attn(layer_norm(self.norm_mha, x), lengths=lengths))
+        y = layer_norm(self.norm_mha, x)
+        if isinstance(attn, RWKVAttention):
+            y = attn(y, lengths=lengths)
+        else:
+            y = attn(y, y, att_mask, pos_emb)
+        x = x + drop(y)
         x = x + drop(self.conv_module(layer_norm(self.norm_conv, x),
                                       pad_mask))
         x = x + 0.5 * drop(self.feed_forward(layer_norm(self.norm_ff, x)))
@@ -80,41 +125,55 @@ class ConformerEncoderLayer(nn.Module):
 
 
 class ConformerEncoder(nn.Module):
-    """conv2d /4 subsampling -> rel-pos x-scaling -> N blocks -> after_norm.
+    """conv2d /4 subsampling -> positional encoding -> N blocks ->
+    after_norm.
 
-    Returns (encoded (B, T', D), out_lengths (B,)).  Only the options of
-    the flagship family are ported; others raise NotImplementedError.
+    Returns (encoded (B, T', D), out_lengths (B,)).  Pre-norm macaron
+    blocks with a non-causal conv module after conv2d subsampling; other
+    layouts raise NotImplementedError (the causal conv module waits for
+    ROADMAP Queue 1, item 11; other subsamplings and block layouts for item
+    12b).
     """
 
     def __init__(self, input_size: int = 80, output_size: int = 512,
                  attention_heads: int = 8, linear_units: int = 2048,
                  num_blocks: int = 12, dropout_rate: float = 0.1,
                  positional_dropout_rate: float = 0.1,
+                 attention_dropout_rate: float = 0.0,
                  input_layer: str = "conv2d",
                  pos_enc_layer_type: str = "rel_pos",
                  normalize_before: bool = True, macaron_style: bool = True,
                  use_cnn_module: bool = True, cnn_module_kernel: int = 31,
                  cnn_module_norm: str = "layer_norm",
                  activation_type: str = "swish", causal: bool = False,
-                 selfattention_layer_type: str = "rwkv_tmix60_bidirectional",
+                 key_bias: bool = True,
+                 selfattention_layer_type: str = "rel_selfattn",
                  rwkv_conf: Optional[dict] = None, **unused: Any):
         super().__init__()
-        if (input_layer != "conv2d" or pos_enc_layer_type != "rel_pos"
-                or not (normalize_before and macaron_style and use_cnn_module)
-                or causal):
+        if causal:
             raise NotImplementedError(
-                "the port's encoder is the flagship family: conv2d input, "
-                "rel_pos, pre-norm macaron blocks with a non-causal conv "
-                "module")
+                "the causal conv module waits for ROADMAP Queue 1, item 11 "
+                "(streaming)")
+        if (input_layer != "conv2d" or pos_enc_layer_type not in EMB_CLASSES
+                or not (normalize_before and macaron_style
+                        and use_cnn_module)):
+            raise NotImplementedError(
+                "the port's conformer has conv2d input, pre-norm macaron "
+                "blocks with a conv module and abs_pos, rel_pos or no_pos "
+                "positions; other layouts wait for ROADMAP Queue 1, item 12b")
         rwkv_conf = dict(rwkv_conf or {})
         self.num_blocks = num_blocks
         self.embed = Conv2dSubsampling4(input_size, output_size)
-        self.pos_enc = RelPositionalEncoding(output_size,
-                                             positional_dropout_rate)
+        self.pos_enc = EMB_CLASSES[pos_enc_layer_type](
+            output_size, positional_dropout_rate)
+        self.attention_names = []
         for i in range(num_blocks):
-            setattr(self, f"RWKVAttention_{i}", _make_attention(
+            attn = _make_attention(
                 selfattention_layer_type, attention_heads, output_size,
-                num_blocks, i, rwkv_conf))
+                attention_dropout_rate, key_bias, num_blocks, i, rwkv_conf)
+            name = f"{type(attn).__name__}_{i}"
+            setattr(self, name, attn)
+            self.attention_names.append(name)
             setattr(self, f"layer_{i}", ConformerEncoderLayer(
                 output_size, linear_units, dropout_rate, cnn_module_kernel,
                 cnn_module_norm, activation_type))
@@ -123,9 +182,11 @@ class ConformerEncoder(nn.Module):
     def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor):
         xs, out_lens = self.embed(xs, xs_lens)
         out_lens = torch.clamp(out_lens, max=xs.shape[1])
-        xs, _ = self.pos_enc(xs)
+        xs, pos_emb = self.pos_enc(xs)
         pad_mask = make_pad_mask(out_lens, xs.shape[1])
-        for i in range(self.num_blocks):
+        att_mask = pad_mask[:, None, :]
+        for i, name in enumerate(self.attention_names):
             xs = getattr(self, f"layer_{i}")(
-                xs, getattr(self, f"RWKVAttention_{i}"), pad_mask, out_lens)
+                xs, getattr(self, name), att_mask, pos_emb, pad_mask,
+                out_lens)
         return layer_norm(self.after_norm, xs), out_lens

@@ -1,5 +1,6 @@
-"""Positional encodings (port of ``PositionalEncoding`` and
-``RelPositionalEncoding`` of the JAX ``models/embedding.py``)."""
+"""Positional encodings (port of ``PositionalEncoding``,
+``RelPositionalEncoding`` and ``NoPositionalEncoding`` of the JAX
+``models/embedding.py``)."""
 from __future__ import annotations
 
 import math
@@ -55,3 +56,16 @@ class PositionalEncoding(nn.Module):
         scale = torch.sqrt(torch.tensor(float(self.d_model), dtype=x.dtype))
         return (self.dropout(x * scale.to(x.device) + pos),
                 self.dropout(pos))
+
+
+class NoPositionalEncoding(nn.Module):
+    """No positions: returns (dropout(x), zeros (1, T, d) in x's dtype); x is
+    not scaled, as in the JAX module."""
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.1):
+        super().__init__()
+        self.d_model = d_model
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor, offset: int = 0):
+        return self.dropout(x), x.new_zeros(1, x.shape[1], self.d_model)

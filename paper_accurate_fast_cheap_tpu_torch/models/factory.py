@@ -1,8 +1,9 @@
 """Model factory from WeNet-style config dicts (port of the JAX
 ``models/factory.py`` for ``model: transducer`` with ``predictor: rnn`` and
-``model: asr_model``, both on ``encoder: conformer``, with an optional
-``decoder: transformer`` or ``bitransformer``; other families wait for
-later slices)."""
+``model: asr_model``, both on ``encoder: conformer`` with any attention of
+the JAX registry but ``mamba_att``, with an optional ``decoder:
+transformer`` or ``bitransformer``; other families wait for later
+slices)."""
 from __future__ import annotations
 
 import logging
@@ -67,11 +68,12 @@ def init_model(config: Dict[str, Any], vocab_size: int, input_dim: int = 80,
             and config.get("predictor", "rnn") != "rnn"):
         raise NotImplementedError(
             "the port builds model: transducer (predictor: rnn) and model: "
-            "asr_model; other families wait for later slices")
+            "asr_model; other families wait for ROADMAP Queue 1, item 13")
     if encoder_type != "conformer":
         raise NotImplementedError(
             f"encoder {encoder_type!r}: the port builds the conformer "
-            "encoder only; other families wait for ROADMAP Queue 1, item 12")
+            "encoder only; other families wait for ROADMAP Queue 1, item "
+            "12b")
     enc_conf = encoder_conf_from_yaml(config.get("encoder_conf", {}),
                                       input_dim)
     model_conf = config.get("model_conf", {})

@@ -57,6 +57,12 @@ def uniform_(t: torch.Tensor, lo: float, hi: float, g: torch.Generator):
     return t
 
 
+def xavier_uniform_(t: torch.Tensor, g: torch.Generator):
+    """flax ``xavier_uniform`` of a 2-D (fan_in, fan_out) parameter."""
+    lim = math.sqrt(6.0 / (t.shape[0] + t.shape[1]))
+    return uniform_(t, -lim, lim, g)
+
+
 def normal_(t: torch.Tensor, std: float, g: torch.Generator):
     with torch.no_grad():
         t.copy_(torch.empty(t.shape).normal_(0.0, std, generator=g))

@@ -6,15 +6,20 @@ for r/k/v/w, per-channel decay ``w = time_decay + tanh(w @ w1) @ w2``
 WKV recurrence (K1, ``ops/wkv6_cuda.py``), LayerNorm(dim_att) and the
 output projection.  The layer-dependent init ramps are exact.
 
-``RWKVAttention``: directions ``uni`` and ``bi``.  ``bi`` runs a second
-time-mix on the valid-prefix-reversed input (``flip_padded``) and averages.
-The direction-dropout variants wait for a later slice.  ``wkv_impl`` and
+``RWKVAttention``: directions ``uni``, ``bi``, ``dirdrop`` and
+``dirdrop_both``.  ``bi`` runs a second time-mix on the valid-prefix-reversed
+input (``flip_padded``) and averages.  The direction-dropout variants drop
+the R2L pass (``dirdrop``) or one random direction (``dirdrop_both``) in
+``.train()``, one draw per call for the whole batch; in ``.eval()`` they
+average both unless ``alt_decoding`` (even layers L2R, odd layers R2L) or
+``bidirectional_layers`` (L2R alone outside the listed layers) says
+otherwise.  ``wkv_impl`` and
 ``wkv_version`` are accepted so configs load, and do nothing: the kernel
 wrapper always runs (its plain version on the CPU).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,6 +32,9 @@ from paper_accurate_fast_cheap_tpu_torch.ops.wkv6_cuda import wkv6_cuda
 
 D_MIX_LORA = 32
 D_DECAY_LORA = 64
+# direction dropout: P(drop R2L) for dirdrop, P(keep both) for dirdrop_both
+DROP_PROB = 0.2
+KEEP_BOTH_PROB = 0.8
 
 
 def _tmix_ramps(layer_id: int, n_layers: int, n_embd: int, dim_att: int,
@@ -131,24 +139,52 @@ def flip_padded(x: torch.Tensor, lengths: Optional[torch.Tensor]):
 
 
 class RWKVAttention(nn.Module):
-    """Directional wrapper: ``uni`` or ``bi`` (average of the L2R pass and
-    the R2L pass over the valid prefix)."""
+    """Directional wrapper: ``uni``, ``bi`` (average of the L2R pass and
+    the R2L pass over the valid prefix), ``dirdrop`` or ``dirdrop_both``.
+
+    Direction dropout draws from torch's default generator on the host (a
+    Bernoulli shared by the batch: keep R2L with 1 - ``DROP_PROB``, or keep
+    both with ``KEEP_BOTH_PROB`` and else a fair coin for the direction),
+    so only the kept passes run; a dropped pass's parameters get no
+    gradient (the training step counts them as zero)."""
 
     def __init__(self, head_size: int, dim_att: int, n_layers: int,
                  direction: str = "bi", layer_id: int = 0,
-                 do_bfloat16: bool = True):
+                 do_bfloat16: bool = True,
+                 bidirectional_layers: Optional[Sequence[int]] = None,
+                 alt_decoding: bool = False):
         super().__init__()
-        if direction not in ("uni", "bi"):
-            raise NotImplementedError(
-                f"rwkv direction {direction!r} (direction dropout waits for "
-                f"a later slice of the port)")
+        if direction not in ("uni", "bi", "dirdrop", "dirdrop_both"):
+            raise ValueError(f"unknown rwkv direction: {direction!r}")
         self.direction = direction
+        self.layer_id = layer_id
         self.do_bfloat16 = do_bfloat16
+        self.bidirectional_layers = (None if bidirectional_layers is None
+                                     else tuple(bidirectional_layers))
+        self.alt_decoding = alt_decoding
         mk = lambda: RWKVTimeMix(head_size, n_layers, dim_att, dim_att,  # noqa
                                  layer_id)
         self.tmix = mk()
-        if direction == "bi":
+        if direction != "uni":
             self.tmix_rev = mk()
+
+    def _passes(self):
+        """Which passes run: (L2R, R2L)."""
+        if self.direction == "bi":
+            return True, True
+        if self.training:
+            if self.direction == "dirdrop":
+                return True, bool(torch.rand(()) < 1.0 - DROP_PROB)
+            if bool(torch.rand(()) < KEEP_BOTH_PROB):
+                return True, True
+            pick_fwd = bool(torch.rand(()) < 0.5)
+            return pick_fwd, not pick_fwd
+        if self.alt_decoding:
+            return self.layer_id % 2 == 0, self.layer_id % 2 == 1
+        if (self.bidirectional_layers is not None
+                and self.layer_id not in self.bidirectional_layers):
+            return True, False
+        return True, True
 
     def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
         in_dtype = x.dtype
@@ -156,5 +192,11 @@ class RWKVAttention(nn.Module):
             x = x.to(torch.bfloat16)
         if self.direction == "uni":
             return self.tmix(x).to(in_dtype)
-        y_rev = flip_padded(self.tmix_rev(flip_padded(x, lengths)), lengths)
-        return ((self.tmix(x) + y_rev) / 2).to(in_dtype)
+        l2r, r2l = self._passes()
+        if l2r:
+            y = self.tmix(x)
+        if r2l:
+            y_rev = flip_padded(self.tmix_rev(flip_padded(x, lengths)),
+                                lengths)
+            y = (y + y_rev) / 2 if l2r else y_rev
+        return y.to(in_dtype)

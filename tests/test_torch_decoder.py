@@ -147,11 +147,11 @@ def test_bitransformer_decoder(reverse_weight):
 
 
 def test_bridge_refuses_unknown_leaves():
-    """A flax leaf the port has no module for (here the rel-pos attention's
-    ``pos_bias_u``, not ported) raises instead of being copied."""
-    tree = {"encoder": {"layer_0": {"self_attn": {
-        "pos_bias_u": np.zeros((HEADS, D // HEADS), np.float32)}}}}
-    with pytest.raises(KeyError, match="pos_bias_u"):
+    """A flax leaf the port has no module for (here Mamba-2's ``A_log``,
+    not ported) raises instead of being copied."""
+    tree = {"encoder": {"MambaAttention_0": {"mamba_fwd": {
+        "A_log": np.zeros((HEADS,), np.float32)}}}}
+    with pytest.raises(KeyError, match="A_log"):
         state_dict_from_jax(tree)
 
 

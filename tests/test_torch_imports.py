@@ -36,13 +36,15 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 20
     # the training slice's modules and those of the attention decoder, the
-    # short-form CLI and the crash-repro tool are among those imported
+    # short-form CLI, the crash-repro tool, the encoder's attention types
+    # and the WeNet converter are among those imported
     assert {f"{PKG}.{m}" for m in (
         "ops.ffn", "ops.rnnt", "train.schedulers", "train.train_step",
         "bin.train_bench", "ops.multi_product", "ops.losses",
         "models.attention", "models.decoder", "models.asr_model",
         "data.pipeline", "bin.recognize",
-        "tools.repro_tpu_worker_crash")} <= set(mods)
+        "tools.repro_tpu_worker_crash", "models.lca", "models.conformer",
+        "models.embedding", "tools.convert_checkpoint")} <= set(mods)
 
 
 def test_port_sources_do_not_name_the_jax_package():

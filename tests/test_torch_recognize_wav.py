@@ -9,7 +9,11 @@ CLI the same weights through ``convert.state_dict_from_jax`` and
 JSON CMVN in fp32 (``--fuse off`` on the JAX side, ``--device cpu`` on the
 port's), 2-window batches with a padded tail batch, beam 4, and must write
 identical ``.txt`` and ``.ctm`` files.  The HAT joint's ``joint_step`` and
-its device beam (``auto`` takes K4's route) are held to JAX as well.
+its device beam (``auto`` takes K4's route) are held to JAX as well.  A
+rel-pos MHA transducer decodes through both CLIs with
+``--encoder_context_size 8 --encoder_global_tokens 1`` (LCA): the port's
+CLI reads the MHA checkpoint, the JAX CLI (which restores its checkpoint
+without a template) the same weights under the LCA modules' names.
 """
 import io
 import json
@@ -38,7 +42,8 @@ VOCAB = 1100
 BEAM = 4
 
 
-def _config(units: str, cmvn: str, hat: bool) -> dict:
+def _config(units: str, cmvn: str, hat: bool,
+            attention: str = "rwkv_tmix60_bidirectional") -> dict:
     return {
         "model": "transducer",
         "encoder": "conformer",
@@ -46,8 +51,7 @@ def _config(units: str, cmvn: str, hat: bool) -> dict:
             output_size=32, attention_heads=2, linear_units=64, num_blocks=2,
             input_layer="conv2d", pos_enc_layer_type="rel_pos",
             cnn_module_kernel=15, cnn_module_norm="layer_norm",
-            selfattention_layer_type="rwkv_tmix60_bidirectional",
-            rwkv_do_bfloat16=False),
+            selfattention_layer_type=attention, rwkv_do_bfloat16=False),
         "decoder": None,
         "predictor": "rnn",
         "predictor_conf": {"embed_size": 32, "output_size": 32,
@@ -97,8 +101,10 @@ def assets(tmp_path_factory):
                                 "var_stat": (feats ** 2).sum(0).tolist(),
                                 "frame_num": len(feats)}))
     out = {}
-    for joint in ("standard", "hat"):
-        config = _config(str(units), str(cmvn), joint == "hat")
+    for joint in ("standard", "hat", "mha"):
+        config = _config(str(units), str(cmvn), joint == "hat",
+                         "rel_selfattn" if joint == "mha"
+                         else "rwkv_tmix60_bidirectional")
         cfg = d / f"{joint}.json"
         cfg.write_text(json.dumps(config))
         model, _ = j_factory.init_model(config, VOCAB, 80)
@@ -117,7 +123,15 @@ def assets(tmp_path_factory):
             p["joint"]["ffn_out"]["bias"][0] += 4.0
         params = jax.tree.map(jnp.asarray, params)
         ckpt = d / f"{joint}_ckpt"
-        checkpointing.save_checkpoint(str(ckpt), params)
+        if joint == "mha":
+            # the JAX CLI's LCA model restores these names
+            enc = {k.replace("RelPositionMultiHeadedAttention_",
+                             "LimitedRelPositionAttention_"): v
+                   for k, v in p["encoder"].items()}
+            checkpointing.save_checkpoint(str(ckpt), jax.tree.map(
+                jnp.asarray, {"params": dict(p, encoder=enc)}))
+        else:
+            checkpointing.save_checkpoint(str(ckpt), params)
         pt = d / f"{joint}.pt"
         torch.save(state_dict_from_jax(jax.tree.map(np.asarray, params)),
                    str(pt))
@@ -126,13 +140,16 @@ def assets(tmp_path_factory):
     return d, wav_path, out
 
 
-@pytest.mark.parametrize("joint", ["standard", "hat"])
+@pytest.mark.parametrize("joint", ["standard", "hat", "mha"])
 def test_recognize_wav_matches_jax_cli(assets, joint):
     d, wav_path, out = assets
     a = out[joint]
     common = ["--wav", str(wav_path), "--mode", "rnnt_beam_search",
               "--chunk_size", "120", "--batch_size", "2", "--beam_size",
               str(BEAM), "--precision", "fp32", "--config", str(a["cfg"])]
+    if joint == "mha":
+        common += ["--encoder_context_size", "8",
+                   "--encoder_global_tokens", "1"]
     jdir, tdir = d / f"jax_{joint}", d / f"torch_{joint}"
     assert j_cli.main(common + ["--checkpoint", str(a["ckpt"]),
                                 "--output_dir", str(jdir),
