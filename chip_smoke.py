@@ -62,7 +62,31 @@ Phases, each fatal on failure (no phase is skipped or caught):
  12. the paper's training step: train_bench's main on
      examples/gigaspeech/conf/rwkvbi_ds4k31nc_12le_trans_shortform.yaml
      at the same shape, with the counters, and its profile;
+ 13. the Mamba-2 reference: the bi and uni Mamba-2 YAMLs' encoders cut to
+     2 blocks at full width with the flagship's head, f32, the card
+     against the CPU (encoder, CTC, device-beam tokens);
+ 14. the streaming reference: the causal uni-RWKV streaming YAML and the
+     uni-Mamba YAML with causal: true, 2 blocks, f32: a StreamingSession
+     and a StreamingBatch give finals identical to the offline greedy CTC,
+     on the card and the CPU, the card's equal to the CPU's, with K1's
+     launches per window;
+ 15. the main path on the bi Mamba-2 YAML's model at full width (32 x 90 s,
+     beam 8, bf16; no K1, K2 and K3 counted), beside the flagship's
+     encoder seconds;
+ 16. training: train_bench's main on the bi Mamba-2 YAML at B16 x 1500
+     frames x 40 labels, mixed precision, with the SSD's forward and
+     backward device time from the profile;
+ 17. bin/streaming_bench.py at full width, chunk 16, 8 sessions of 30 s in
+     100 ms pieces, one at a time and as one StreamingBatch, bf16: the
+     uni-RWKV streaming YAML (K1 counted: 12 per encoder step) and the
+     uni-Mamba YAML with causal: true cut to 6 blocks;
+ 18. the websocket server (bin/serve.py) on localhost over a model
+     directory, answered by bin/ws_client.py for 3 WAVs, streaming
+     (per-connection sessions and a --streaming_batch slot) and whole
+     buffer, the texts against a session's and transcribe_batch's;
 then one JSON line with every kernel's numbers and, last, the result line.
+K1 is also held and timed at the streaming call (8 x 16 x 8 x 64, the
+state in and out, bf16) in phase 3.
 
 Usage: python3 chip_smoke.py [--batch 32] [--kernels-only]
 Exits non-zero without a result when no CUDA device is present.
@@ -96,6 +120,10 @@ WINDOW_S = 90
 CLI_CHUNK = 8998
 CLI_FRAMES = ((CLI_CHUNK - 1) // 2 - 1) // 2
 CLI_WINDOWS = 32
+# Streaming (the uni-RWKV streaming YAML's serving point): windows of chunk
+# 16 encoder frames (640 ms), 8 sessions of 30 s fed in 100 ms pieces.
+STREAM_CHUNK = 16
+STREAM_SESSIONS, STREAM_UTT_S, STREAM_PIECE_MS = 8, 30, 100
 
 
 def log(msg: str) -> None:
@@ -319,6 +347,35 @@ def check_wkv(g):
                     f"{'in and out' if st else 'none'}): f32 {e32:.3e} <= "
                     f"{1e-4 * sc:.3e}; bf16 {eb:.3e} <= {1e-2 * scb:.3e}; "
                     f"bf16 vs bf16 {ebb:.3e} {'ok' if ok else 'FAIL'}")
+
+    # the streaming call: 8 sessions' 16-frame windows (chunk 16) with the
+    # state in and out, bf16; the uni-RWKV streaming encoder makes 12 a step
+    Bs, Ts = STREAM_SESSIONS, STREAM_CHUNK
+    xs = [_randn((Bs, Ts, H, N), g, 0.5) for _ in range(3)]
+    xs.append(_randn((Bs, Ts, H, N), g, 1.0, -2.0))
+    ss = _randn((Bs, H, N, N), g, 0.1)
+    ok, e32, eb, ebb, sc, scb = _wkv_agree(K, *xs, u, ss)
+    ok_all = ok_all and ok
+    sb = [x.bfloat16() for x in xs]
+
+    def stream_call():
+        return K.wkv6_cuda(*sb, u, state=ss, return_state=True)
+
+    ms_s = cuda_time_ms(stream_call, 20)
+    dev_s = device_ms(stream_call, 20)
+    plain_s = cuda_time_ms(lambda: K.wkv6_chunked(
+        *sb, u, state=ss, return_state=True), 5, warmup=1)
+    # bytes: r, k, v, w in and y out in bf16, u, the f32 state in and out
+    bms_s, by_s = bound_ms(5 * Bs * Ts * H * N * 2 + H * N * 4
+                           + 2 * Bs * H * N * N * 4,
+                           Bs * Ts * H * (4 * N * N + 3 * N), PEAK_BF16_FLOPS)
+    log(f"K1 wkv6 ({Bs}x{Ts}x{H}x{N}, the streaming call, state in and "
+        f"out): f32 {e32:.3e} <= {1e-4 * sc:.3e}; bf16 {eb:.3e} <= "
+        f"{1e-2 * scb:.3e} {'ok' if ok else 'FAIL'}; bf16 kernel "
+        f"{ms_s:.4f} ms (device {dev_s:.4f}), plain {plain_s:.4f} ms, bound "
+        f"{bms_s:.4f} ms ({by_s})")
+    out.update(streaming_ms=ms_s, streaming_device_ms=dev_s,
+               streaming_plain_ms=plain_s, streaming_bound_ms=bms_s)
 
     rb, kb, vb, wb = (x.bfloat16() for x in (r, k, v, w))
     ms = cuda_time_ms(lambda: K.wkv6_cuda(rb, kb, vb, wb, u), 10)
@@ -1334,7 +1391,7 @@ def attention_reference_models(mha_model) -> dict:
             "rwkv_tmix60_dir_layer_drop_both, alt_decoding": dldb}
 
 
-def phase_attention_reference(models, rng):
+def phase_attention_reference(models, rng, what="attention reference"):
     """Small input, f32 (2 x 3 s: 73 and 53 encoder frames), the card
     against the CPU, for each model of ``models`` (label -> model, on the
     card): encoder, CTC and the device beam (``auto``: K2 and K3).  With
@@ -1375,7 +1432,7 @@ def phase_attention_reference(models, rng):
                 and any(r.tokens for r in rg) and counts["joint_topk"] > 0
                 and counts["lstm_step"] > 0)
         ok = ok and good
-        log(f"attention reference {label} (B={B}, 3 s, {eg.shape[1]} "
+        log(f"{what} {label} (B={B}, 3 s, {eg.shape[1]} "
             f"frames, f32, card vs CPU plain): encoder max_abs_err "
             f"{enc_err:.3e}, ctc {ctc_err:.3e} (<= 1e-3), tokens identical "
             f"{same}, best scores within 1e-4 rel {score_ok}, tokens per "
@@ -1828,14 +1885,16 @@ def phase_train_reference(config: dict, label: str) -> bool:
     return ok
 
 
-def profile_train_step(bench) -> None:
+def profile_train_step(bench, ranged_calls=()) -> dict:
     """Where a prepared train_bench step spends its time.  First the step's
     timeline split at the encoder's boundary by CUDA events (no profiler);
     then one step under torch.profiler: its wall time, the device's busy
     time (every kernel and copy), the device time of the forward's parts
     (ranges opened around the encoder, the predictor, the CTC head, the
-    chunked joint gather and the RNN-T recursion) and of the backward's
-    autograd nodes, and the kernels with the most device time."""
+    chunked joint gather and the RNN-T recursion, and around each
+    ``(module, function name)`` of ``ranged_calls``) and of the backward's
+    autograd nodes, and the kernels with the most device time.  Returns
+    {"wall", "busy", "parts", "nodes"} (ms)."""
     import collections
 
     import torch
@@ -1894,10 +1953,11 @@ def profile_train_step(bench) -> None:
              + ranged(m.ctc, "fwd ctc head"))
     if m.decoder is not None:
         hooks += ranged(m.decoder, "fwd attention decoder")
-    fns = {n: getattr(rnnt, n) for n in ("gather_rnnt_logprobs_chunked",
-                                         "rnnt_forward")}
-    for n, fn in fns.items():
-        setattr(rnnt, n, ranged_fn(f"fwd {n}", fn))
+    fns = {(rnnt, n): getattr(rnnt, n) for n in (
+        "gather_rnnt_logprobs_chunked", "rnnt_forward")}
+    fns.update({(mod, n): getattr(mod, n) for mod, n in ranged_calls})
+    for (mod, n), fn in fns.items():
+        setattr(mod, n, ranged_fn(f"fwd {n}", fn))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1908,8 +1968,8 @@ def profile_train_step(bench) -> None:
     finally:
         for h in hooks:
             h.remove()
-        for n, fn in fns.items():
-            setattr(rnnt, n, fn)
+        for (mod, n), fn in fns.items():
+            setattr(mod, n, fn)
     events = prof.events()
     kernels, parts, spans, nodes = (collections.Counter() for _ in range(4))
     for e in events:
@@ -1935,6 +1995,8 @@ def profile_train_step(bench) -> None:
         + ", ".join(f"{k} {v:.1f}" for k, v in nodes.most_common(12)))
     log("  kernels (device ms): " + ", ".join(
         f"{k[:60]} {v:.1f}" for k, v in kernels.most_common(10)))
+    return {"wall": wall, "busy": busy, "parts": dict(parts),
+            "nodes": dict(nodes)}
 
 
 def phase_train(work: str):
@@ -2370,6 +2432,395 @@ def phase_train_paper(work: str):
     return ok, counts
 
 
+# The paper's Mamba-2 encoders (examples/gigaspeech/conf: bi and uni, the
+# transducer with the bitransformer decoder) and the uni-RWKV streaming YAML
+# (a causal CTC model).
+MAMBABI_YAML = ("examples/gigaspeech/conf/"
+                "mambabi_ds4k31nc_12le_trans_shortform.yaml")
+MAMBA_YAML = "examples/gigaspeech/conf/mamba_ds4k31nc_12le_trans_shortform.yaml"
+STREAM_YAML = ("examples/gigaspeech/conf/"
+               "bench_rwkvuni_causal_ds4k31c_12le_streaming.yaml")
+# the uni-Mamba streaming bench's depth (cut from 12 for the run's time)
+MAMBA_STREAM_BLOCKS = 6
+
+
+def mamba_reference_models() -> dict:
+    """The Mamba-2 reference's models, f32, on the card: the bi and uni
+    YAMLs' encoders cut to 2 blocks at full width (d_state 128, headdim 64),
+    with the flagship's predictor and joint."""
+    return {f"{name}, 2 blocks": build_model(
+        config=attention_config(path, num_blocks=2), seed=seed,
+        label=f"{name}, 2 blocks")
+        for name, path, seed in (("Mamba-2 bi", MAMBABI_YAML, 10),
+                                 ("Mamba-2 uni", MAMBA_YAML, 11))}
+
+
+class _IdTokenizer:
+    """Token ids as words (the streaming phases' texts)."""
+
+    def detokenize(self, ids):
+        return " ".join(f"t{i}" for i in ids), [f"t{i}" for i in ids]
+
+
+def streaming_models() -> dict:
+    """The causal streaming encoders at 2 blocks, full width, f32, on the
+    CPU: the uni-RWKV streaming YAML (a CTC model; its bf16 cast off, which
+    rounds differently on the two devices) and the uni-Mamba YAML with
+    ``causal: true`` (a transducer with the flagship's head); the CTC blank
+    biased +2.5 as the main path's heads."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.models import factory
+
+    rwkv = dict(_yaml(STREAM_YAML))
+    rwkv["encoder_conf"] = dict(rwkv["encoder_conf"], num_blocks=2,
+                                rwkv_do_bfloat16=False)
+    configs = {"uni-RWKV (streaming YAML)": rwkv,
+               "uni-Mamba (mamba YAML, causal)": attention_config(
+                   MAMBA_YAML, num_blocks=2, causal=True)}
+    out = {}
+    for seed, (label, config) in enumerate(configs.items(), 20):
+        model, _ = factory.init_model(
+            config, VOCAB, 80, device="cpu",
+            generator=torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            model.ctc.ctc_lo.bias[0] += 2.5
+        out[label] = (model, config)
+    return out
+
+
+def _stream_wav(rng, seconds: float) -> np.ndarray:
+    """Seeded noise quantized to 16 bits, as a client sends it."""
+    n = int(seconds * 16000)
+    pcm = np.clip(rng.randn(n) * 0.1 * 32768, -32768, 32767).astype(np.int16)
+    return pcm.astype(np.float32) / 32768.0
+
+
+def _offline_greedy(model, featurize, wav):
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.decode import search
+
+    with torch.no_grad():
+        feats, flens = featurize(torch.from_numpy(wav[None]),
+                                 torch.tensor([len(wav)]))
+        enc, el = model.forward_encoder(feats.to(
+            next(model.parameters()).dtype), flens)
+        logp = model.ctc_logprobs(enc)
+    return search.ctc_greedy_search(logp.float().cpu().numpy(),
+                                    el.cpu().numpy())[0].tokens
+
+
+def _count_windows():
+    """Wrap the streaming module's encoder step with a call counter;
+    returns (counter list, restore function)."""
+    from paper_accurate_fast_cheap_tpu_torch import streaming
+
+    calls, fn = [0], streaming._encode_chunk
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return fn(*a, **k)
+
+    streaming._encode_chunk = counted
+
+    def restore():
+        streaming._encode_chunk = fn
+    return calls, restore
+
+
+def phase_streaming_reference(models: dict, rng) -> bool:
+    """f32, 2 utterances of 6.4 and 4.3 s: for each causal encoder, a
+    StreamingSession (chunk 16, 100 ms pieces) and a StreamingBatch of both
+    utterances give finals identical to the offline greedy CTC of the whole
+    utterance, on the card and on the CPU, and the card's equal the CPU's;
+    the uni-RWKV's K1 launches are 2 (blocks) per window."""
+    import copy
+
+    from paper_accurate_fast_cheap_tpu_torch import streaming
+    from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
+
+    wavs = [_stream_wav(rng, 6.4), _stream_wav(rng, 4.3)]
+    piece = STREAM_PIECE_MS * 16
+    ok = True
+    for label, (model, _) in models.items():
+        finals = {}
+        for dev in ("cuda", "cpu"):
+            m = copy.deepcopy(model).to(dev).eval()
+            fz = pipeline.make_feature_fn({}, None, device=dev)
+            calls, restore = _count_windows()
+            zero_counts()
+            try:
+                sess_tokens = []
+                for w in wavs:
+                    s = streaming.StreamingSession(
+                        m, _IdTokenizer(), fz,
+                        decoding_chunk_size=STREAM_CHUNK)
+                    for i in range(0, len(w), piece):
+                        s.accept_waveform(w[i:i + piece])
+                    sess_tokens.append(s.finalize().tokens)
+                windows, k1 = calls[0], read_counts()["wkv6_fwd"]
+                batch = streaming.StreamingBatch(
+                    m, _IdTokenizer(), fz, max_sessions=2,
+                    decoding_chunk_size=STREAM_CHUNK)
+                sids = [batch.open() for _ in wavs]
+                for sid, w in zip(sids, wavs):
+                    batch.accept_waveform(sid, w)
+                batch_tokens = [batch.finalize(sid).tokens for sid in sids]
+            finally:
+                restore()
+            offline = [_offline_greedy(m, fz, w) for w in wavs]
+            finals[dev] = sess_tokens
+            rwkv = "RWKV" in label
+            k1_ok = dev == "cpu" or k1 == (2 * windows if rwkv else 0)
+            good = (sess_tokens == offline and batch_tokens == offline
+                    and all(offline) and k1_ok)
+            ok = ok and good
+            log(f"streaming reference {label} on {dev} (f32, chunk "
+                f"{STREAM_CHUNK}, {windows} session windows): session and "
+                f"batch finals identical to the offline greedy CTC "
+                f"{sess_tokens == offline and batch_tokens == offline}, "
+                f"tokens {[len(t) for t in offline]}"
+                + (f", K1 launches {k1} "
+                   f"({'2 per window' if rwkv else 'none'})"
+                   if dev == "cuda" else "") + f" {'ok' if good else 'FAIL'}")
+        same = finals["cuda"] == finals["cpu"]
+        ok = ok and same
+        log(f"streaming reference {label}: card finals identical to the "
+            f"CPU's {same} {'ok' if same else 'FAIL'}")
+    return ok
+
+
+def phase_train_mamba(work: str):
+    """train_bench's main on the bi Mamba-2 YAML (its transducer and
+    bitransformer decoder; Adam, warmuplr and its clip) at B16 x 1500
+    frames x 40 labels, mixed precision, the counters set to 0 just before
+    and read just after (no kernel of the port runs: the SSD is plain
+    PyTorch); then the step's profile with the SSD's forward ranged and its
+    backward node (the analytic ssd_backward).  Returns ok."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import train_bench
+    from paper_accurate_fast_cheap_tpu_torch.models import mamba
+
+    out = os.path.join(work, "train_mamba.bench")
+    argv = _train_argv(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), MAMBABI_YAML), out)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = train_bench.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {n: 0 for n in counts}
+    log(f"training, the bi Mamba-2 YAML (train_bench.main, {MAMBABI_YAML}, "
+        f"B{TRAIN_BATCH} x {TRAIN_FRAMES} frames x {TRAIN_LABELS} labels, "
+        f"mixed precision): {wall:.2f} s with the model build; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rep = _report(out)
+    vals = [float(rep[k]) for k in ("final_loss", "loss_att", "th_accuracy")]
+    ok = rc == 0 and counts == want and all(np.isfinite(vals))
+    prof = profile_train_step(train_bench.prepare(train_bench.get_args(argv)),
+                              ranged_calls=((mamba.ssd_ops, "ssd"),))
+    bwd = {k: v for k, v in prof["nodes"].items() if "SSD" in k}
+    log(f"SSD in the step (torch.profiler, device ms): forward "
+        f"{prof['parts'].get('ssd', 0.0):.1f} (24 calls: 12 layers x 2 "
+        f"directions), backward "
+        f"{json.dumps({k: round(v, 1) for k, v in bwd.items()})}, of "
+        f"{prof['busy']:.1f} busy; counters {json.dumps(counts)}, "
+        f"expected {json.dumps(want)}, loss, loss_att and th_accuracy finite "
+        f"{all(np.isfinite(vals))} {'ok' if ok else 'FAIL'}")
+    return ok and bool(bwd)
+
+
+def _stream_bench_config(work: str, name: str, path: str, **encoder) -> str:
+    conf = _yaml(path)
+    conf["encoder_conf"] = dict(conf["encoder_conf"], **encoder)
+    out = os.path.join(work, f"{name}.json")
+    with open(out, "w") as f:
+        json.dump(conf, f)
+    return out
+
+
+def streaming_window_split(config: str, sessions: int, windows: int = 20):
+    """Where one streaming window's time goes on the card: the model of
+    ``config`` as streaming_bench builds it (bf16), one StreamingSession
+    (``sessions`` 1) or a StreamingBatch of ``sessions`` slots fed one
+    window each per call; torch.profiler's device time per window by
+    kernel over ``windows`` windows (outside every counted run).  Returns
+    (busy device ms per window, {kernel: ms per window})."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch import streaming
+    from paper_accurate_fast_cheap_tpu_torch.bin import streaming_bench
+
+    model, fz, shift, flen = streaming_bench.build(
+        streaming_bench.get_args(["--config", config]), torch.device("cuda"))
+    geo = dict(decoding_chunk_size=STREAM_CHUNK, frame_shift=shift,
+               frame_length=flen)
+    if sessions == 1:
+        sess = streaming.StreamingSession(model, _IdTokenizer(), fz, **geo)
+        feed = [lambda x: sess.accept_waveform(x)]
+        step = lambda: None  # noqa: E731
+    else:
+        batch = streaming.StreamingBatch(model, _IdTokenizer(), fz,
+                                         max_sessions=sessions, **geo)
+        sids = [batch.open() for _ in range(sessions)]
+        feed = [lambda x, s=s: batch.accept_waveform(s, x) for s in sids]
+        step = batch.step
+    wav = _stream_wav(np.random.RandomState(17), STREAM_UTT_S)
+    win = sess._win_samples if sessions == 1 else batch._win_samples
+    stride = STREAM_CHUNK * 4 * shift
+    pos = [0]
+
+    def one_window():
+        take = win if pos[0] == 0 else stride
+        for f in feed:
+            f(wav[pos[0]:pos[0] + take])
+        step()
+        pos[0] += take
+
+    split = kernel_split(one_window, calls=windows)
+    del model
+    return sum(split.values()), split
+
+
+def phase_streaming_bench(work: str):
+    """bin/streaming_bench.py at full width, bf16, chunk 16, 8 sessions of
+    30 s in 100 ms pieces, one session at a time and then the 8 through a
+    StreamingBatch: the uni-RWKV streaming YAML (12 blocks; K1 launched 12
+    times per encoder step, counted over each run) and the uni-Mamba YAML
+    with causal: true at MAMBA_STREAM_BLOCKS blocks (no K1).  Returns (ok,
+    {label: report})."""
+    from paper_accurate_fast_cheap_tpu_torch.bin import streaming_bench
+
+    runs = {"uni-RWKV": (os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), STREAM_YAML), 12),
+        f"uni-Mamba, {MAMBA_STREAM_BLOCKS} blocks": (_stream_bench_config(
+            work, "mamba_stream", MAMBA_YAML, causal=True,
+            num_blocks=MAMBA_STREAM_BLOCKS), 0)}
+    ok, reports = True, {}
+    for label, (config, k1_per_step) in runs.items():
+        for concurrent, n_utts in ((1, STREAM_SESSIONS),
+                                   (STREAM_SESSIONS, 1)):
+            calls, restore = _count_windows()
+            zero_counts()
+            try:
+                rep = streaming_bench.main([
+                    "--config", config, "--chunk", str(STREAM_CHUNK),
+                    "--utt_seconds", str(STREAM_UTT_S), "--n_utts",
+                    str(n_utts), "--piece_ms", str(STREAM_PIECE_MS),
+                    "--concurrent", str(concurrent)])
+            finally:
+                restore()
+            counts = read_counts()
+            want = dict.fromkeys(counts, 0)
+            want["wkv6_fwd"] = k1_per_step * calls[0]
+            mode = ("one session at a time" if concurrent == 1 else
+                    f"StreamingBatch of {concurrent}")
+            good = (counts == want and rep["streaming_rtf"] > 0
+                    and calls[0] > 0)
+            ok = ok and good
+            wc = rep["window_compute_ms"]
+            lat = rep["emission_latency_ms"]
+            log(f"streaming_bench {label}, {mode} ({STREAM_SESSIONS} x "
+                f"{STREAM_UTT_S} s, chunk {STREAM_CHUNK}, "
+                f"{STREAM_PIECE_MS} ms pieces, bf16): window compute ms "
+                f"p50 {wc['p50']:.3f} p90 {wc['p90']:.3f} p99 "
+                f"{wc['p99']:.3f}; 1/RTF {1.0 / rep['streaming_rtf']:.1f}; "
+                f"emission latency ms (avg token) p50 "
+                f"{lat['avg_token'].get('p50', float('nan')):.1f} p90 "
+                f"{lat['avg_token'].get('p90', float('nan')):.1f}, first "
+                f"token p50 {lat['first_token'].get('p50', float('nan')):.1f}"
+                f"; {calls[0]} encoder steps, counters {json.dumps(counts)}, "
+                f"expected {json.dumps(want)} ({k1_per_step} K1 per step) "
+                f"{'ok' if good else 'FAIL'}")
+            reports[label, concurrent] = rep
+            busy, split = streaming_window_split(config, concurrent)
+            top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+            log(f"  one window on the card ({mode}, torch.profiler): device "
+                f"busy {busy:.3f} ms of the {wc['p50']:.3f} ms p50 wall "
+                f"({100 * busy / wc['p50']:.1f}%); top kernels (ms) "
+                + json.dumps({k[:48]: round(v, 4) for k, v in top}))
+    return ok, reports
+
+
+def phase_server(work: str, rng, model, config) -> bool:
+    """The port's websocket server on localhost over a model directory
+    (the uni-RWKV streaming model at 2 blocks, f32, a whitespace symbol
+    table of VOCAB pieces), answered by bin/ws_client for 3 WAVs: streaming
+    through per-connection sessions, through a --streaming_batch 2 slot,
+    and whole-buffer ctc_greedy_search.  The texts equal a
+    StreamingSession's and transcribe_batch's on the same quantized
+    audio.  Returns ok."""
+    import threading
+
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch import api, streaming
+    from paper_accurate_fast_cheap_tpu_torch.bin import serve, ws_client
+
+    d = os.path.join(work, "server_model")
+    os.makedirs(d)
+    with open(os.path.join(d, "units.txt"), "w") as f:
+        f.write("<blank> 0\n<unk> 1\n")
+        for i in range(2, VOCAB):
+            f.write(f"p{i} {i}\n")
+    with open(os.path.join(d, "train.yaml"), "w") as f:
+        json.dump(dict(config, tokenizer="whitespace",
+                       tokenizer_conf={"symbol_table_path": "units.txt"}), f)
+    torch.save(model.state_dict(), os.path.join(d, "model.pt"))
+    m = api.load_model(d)
+    wav_paths, quantized = [], []
+    for i, secs in enumerate((3.7, 5.1, 2.6)):
+        pcm = np.clip(rng.randn(int(secs * 16000)) * 0.1 * 32768, -32768,
+                      32767).astype(np.int16)
+        path = os.path.join(work, f"stream{i}.wav")
+        _write_wav(path, pcm)
+        wav_paths.append(path)
+        # the client sends clip(x * 32767) of the WAV's x = pcm / 32768
+        sent = np.frombuffer(ws_client.pcm16(pcm.astype(np.float32)
+                                             / 32768.0), "<i2")
+        quantized.append(sent.astype(np.float32) / 32768.0)
+    want_stream, want_whole = [], []
+    for w in quantized:
+        s = streaming.StreamingSession(m.model, m.tokenizer, m.featurize,
+                                       decoding_chunk_size=STREAM_CHUNK)
+        s.accept_waveform(w)
+        want_stream.append(s.finalize().text)
+        want_whole.append(m.transcribe_batch([w])[0])
+    ok = True
+    for streaming_batch in (0, 2):
+        srv = serve.serve(m, host="127.0.0.1", port=0,
+                          streaming_chunk=STREAM_CHUNK,
+                          streaming_batch=streaming_batch)
+        port = srv.server_address[1]
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        t0 = time.perf_counter()
+        try:
+            got_stream = [ws_client.transcribe_file("127.0.0.1", port, p,
+                                                    streaming=True)
+                          for p in wav_paths]
+            got_whole = ([ws_client.transcribe_file("127.0.0.1", port, p)
+                          for p in wav_paths] if streaming_batch == 0
+                         else want_whole)
+        finally:
+            srv.stop()
+        good = (got_stream == want_stream and got_whole == want_whole
+                and any(want_stream))
+        ok = ok and good
+        log(f"server (ws://127.0.0.1, --streaming_batch {streaming_batch}, "
+            f"3 WAVs of 2.6-5.1 s, {time.perf_counter() - t0:.2f} s): "
+            f"streaming texts equal the sessions' {got_stream == want_stream}"
+            + (f", whole-buffer texts equal transcribe_batch's "
+               f"{got_whole == want_whole}" if streaming_batch == 0 else "")
+            + f", words per text {[len(t.split()) for t in got_stream]} "
+            f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=32)
@@ -2474,6 +2925,37 @@ def main() -> int:
         paper_ok, paper_counts = phase_train_paper(work)
         if not paper_ok:
             failed.append("training, the paper's config")
+        # the Mamba-2 encoders and streaming
+        if not phase_attention_reference(mamba_reference_models(),
+                                         np.random.RandomState(13),
+                                         what="Mamba-2 reference"):
+            failed.append("Mamba-2 reference")
+        s_models = streaming_models()
+        if not phase_streaming_reference(s_models,
+                                         np.random.RandomState(14)):
+            failed.append("streaming reference")
+        torch.cuda.empty_cache()
+        mb_ok, mb_counts, mb_stages = phase_main(
+            build_model(config=_yaml(MAMBABI_YAML), seed=12,
+                        label="Mamba-2 bi (mambabi YAML)"),
+            np.random.RandomState(15), args.batch, "Mamba-2 bi", wkv=0,
+            split=False)
+        log(f"main path, Mamba-2 bi: encoder+ctc "
+            f"{mb_stages['encoder+ctc']:.4f} s against the flagship's "
+            f"{stages['encoder+ctc']:.4f} s {'ok' if mb_ok else 'FAIL'}")
+        if not mb_ok:
+            failed.append("main path, Mamba-2 bi")
+        torch.cuda.empty_cache()
+        if not phase_train_mamba(work):
+            failed.append("training, the bi Mamba-2 YAML")
+        torch.cuda.empty_cache()
+        sb_ok, _ = phase_streaming_bench(work)
+        if not sb_ok:
+            failed.append("streaming_bench")
+        rwkv_model, rwkv_config = s_models["uni-RWKV (streaming YAML)"]
+        if not phase_server(work, np.random.RandomState(16), rwkv_model,
+                            rwkv_config):
+            failed.append("websocket server")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failed:
@@ -2497,6 +2979,7 @@ def main() -> int:
         f"{paper_counts['wkv6_fwd']} (the paper's config) "
         f"({TRAIN_WARMUP + TRAIN_ITERS} steps x 24 per forward); short-form "
         f"recognize, rnnt_beam_search: {json.dumps(sf_counts)}")
+    log(f"Mamba-2 bi main path counters: {json.dumps(mb_counts)}")
     log(f"chip_smoke: every phase ok in {time.perf_counter() - t_start:.1f} "
         "s")
     for row in rows:
@@ -2507,8 +2990,10 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_path", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in rows]}))
+    print(json.dumps({"kernels": [
+        {**{k: row[k] for k in keys},
+         **{k: v for k, v in row.items() if k.startswith("streaming_")}}
+        for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,156 @@
+"""Python inference API (port of the JAX ``api.py``): ``load_model(dir)`` and
+``Model.transcribe(audio) -> {text, ...}`` over a local model directory.
+
+A model directory holds ``train.yaml``, the files its ``tokenizer_conf``
+(and ``cmvn_conf``) name, and the port's ``state_dict`` files
+(``torch.save``; ``tools/convert_checkpoint.py`` makes one from a WeNet
+checkpoint).  The checkpoint is the one given, else the newest ``*.pt`` in
+the directory.  Paths in ``train.yaml`` that do not exist as given are
+looked up in the directory.  The model runs on ``cuda`` unless the caller
+passes ``device="cpu"``.  A hub name or URL is not ported (ROADMAP Queue 1,
+item 15).
+"""
+from __future__ import annotations
+
+import glob
+import os
+import types
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from paper_accurate_fast_cheap_tpu_torch import resolve_device
+
+
+def _in_dir(config: dict, model_dir: str) -> dict:
+    """``config`` with each missing relative file path of its tokenizer and
+    CMVN confs taken from ``model_dir`` when it is there."""
+    out = dict(config)
+    for conf in ("tokenizer_conf", "cmvn_conf"):
+        sub = dict(out.get(conf) or {})
+        for k, v in sub.items():
+            if (isinstance(v, str) and k.endswith(("_path", "_file"))
+                    and not os.path.exists(v)):
+                cand = os.path.join(model_dir, v)
+                if not os.path.exists(cand):
+                    cand = os.path.join(model_dir, os.path.basename(v))
+                if os.path.exists(cand):
+                    sub[k] = cand
+        if sub:
+            out[conf] = sub
+    return out
+
+
+def _newest_checkpoint(model_dir: str) -> str:
+    cks = sorted(glob.glob(os.path.join(model_dir, "*.pt")),
+                 key=os.path.getmtime)
+    if not cks:
+        raise FileNotFoundError(f"no *.pt checkpoint in {model_dir}")
+    return cks[-1]
+
+
+class Model:
+    """A loaded model, its tokenizer and its feature function."""
+
+    def __init__(self, config, tokenizer, model, model_type, featurize,
+                 precision: str = "fp32"):
+        if precision not in ("fp32", "bf16"):
+            raise ValueError(f"precision {precision!r} not in fp32/bf16")
+        self.config = config
+        self.tokenizer = tokenizer
+        self.model = model.to(torch.bfloat16) if precision == "bf16" \
+            else model
+        self.model_type = model_type
+        self.precision = precision
+        self.featurize = featurize
+        special = config.get("tokenizer_conf", {}).get("special_tokens", {})
+        self.sos = special.get("<sos>", tokenizer.vocab_size() - 1)
+        self.eos = special.get("<eos>", tokenizer.vocab_size() - 1)
+
+    @classmethod
+    def from_dir(cls, model_dir: str, checkpoint: Optional[str] = None,
+                 precision: str = "fp32", device=None):
+        """Load from a local model directory (``train.yaml`` and the newest
+        ``*.pt`` unless ``checkpoint`` names one)."""
+        from paper_accurate_fast_cheap_tpu_torch.bin.recognize import (
+            build_decode_assets)
+        from paper_accurate_fast_cheap_tpu_torch.utils.config import (
+            load_config)
+
+        if "://" in model_dir or not os.path.isdir(model_dir):
+            raise NotImplementedError(
+                f"{model_dir!r} is not a local model directory: hub names "
+                "and URLs wait for ROADMAP Queue 1, item 15")
+        dev = resolve_device(device)
+        config = _in_dir(load_config(os.path.join(model_dir, "train.yaml")),
+                         model_dir)
+        checkpoint = checkpoint or _newest_checkpoint(model_dir)
+        tokenizer, model, model_type, featurize, _ = build_decode_assets(
+            config, checkpoint, device=dev)
+        return cls(config, tokenizer, model, model_type, featurize,
+                   precision=precision)
+
+    @torch.no_grad()
+    def _decode(self, wavs, mode: str, beam_size: int):
+        """One featurize + encoder + search over the padded batch; returns
+        the decode results (``tokens``, ``times``, ...) per waveform."""
+        from paper_accurate_fast_cheap_tpu_torch.bin.recognize import (
+            SUPPORTED_MODES, decode_batch)
+
+        if mode not in SUPPORTED_MODES:
+            raise ValueError(f"unknown mode {mode!r}")
+        S = max(len(w) for w in wavs)
+        batch = np.zeros((len(wavs), S), np.float32)
+        lens = np.zeros((len(wavs),), np.int64)
+        for i, w in enumerate(wavs):
+            batch[i, :len(w)] = w
+            lens[i] = len(w)
+        feats, feat_lens = self.featurize(torch.from_numpy(batch),
+                                          torch.from_numpy(lens))
+        feats = feats.to(next(self.model.parameters()).dtype)
+        args = types.SimpleNamespace(
+            modes=[mode], beam_size=beam_size, ctc_weight=0.3,
+            transducer_weight=0.7, rescore_ctc_weight=0.3,
+            reverse_weight=0.0)
+        return decode_batch(self.model, self.model_type, feats, feat_lens,
+                            args, self.sos, self.eos)[mode]
+
+    def transcribe_batch(self, wavs, mode: str = "ctc_greedy_search",
+                         beam_size: int = 8):
+        """Batched decode of float waveforms (16 kHz, [-1, 1]): the
+        serving micro-batcher's entry (``bin/serve.py``).  Returns the
+        texts."""
+        return [self.tokenizer.detokenize(r.tokens)[0]
+                for r in self._decode(wavs, mode, beam_size)]
+
+    def transcribe(self, audio: Union[str, np.ndarray],
+                   sample_rate: int = 16000,
+                   mode: str = "ctc_greedy_search", beam_size: int = 8,
+                   tokens_info: bool = False) -> Dict:
+        """audio: a WAV path or a float waveform in [-1, 1]."""
+        from paper_accurate_fast_cheap_tpu_torch.data.audio import (
+            read_audio_bytes, resample_to)
+
+        if isinstance(audio, str):
+            with open(audio, "rb") as f:
+                wav, sample_rate = read_audio_bytes(f.read())
+        else:
+            wav = np.asarray(audio, np.float32)
+        wav, _ = resample_to(wav, int(sample_rate))
+        res = self._decode([wav], mode, beam_size)[0]
+        text, tokens = self.tokenizer.detokenize(res.tokens)
+        out = {"text": text}
+        if tokens_info:
+            out["tokens"] = tokens
+            out["token_ids"] = list(res.tokens)
+            out["times"] = [t * 0.04 for t in res.times]
+            out["confidence"] = res.confidence
+        return out
+
+
+def load_model(model_dir: str, checkpoint: Optional[str] = None,
+               precision: str = "fp32", device=None) -> Model:
+    """A local model directory (hub names and URLs raise)."""
+    return Model.from_dir(model_dir, checkpoint, precision=precision,
+                          device=device)

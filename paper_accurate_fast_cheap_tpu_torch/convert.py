@@ -3,6 +3,7 @@
 The port names its submodules after the flax tree (``encoder.layer_{i}``,
 ``encoder.RWKVAttention_{i}.tmix``,
 ``encoder.RelPositionMultiHeadedAttention_{i}.linear_pos``,
+``encoder.MambaAttention_{i}.mamba_fwd.in_proj``,
 ``predictor.lstm_{i}.ih``, ``joint.ffn_out``,
 ``decoder.left_decoder.layer_{i}.self_attn.linear_q``, ...) for the
 ``Transducer`` and ``ASRModel`` trees, so the bridge only changes layouts:
@@ -10,11 +11,13 @@ The port names its submodules after the flax tree (``encoder.layer_{i}``,
 * Dense ``kernel`` (in, out)          -> Linear ``weight`` (out, in)
 * Conv ``kernel`` (kh, kw, in, out)   -> Conv2d ``weight`` (out, in, kh, kw)
 * Conv ``kernel`` (k, in/groups, out) -> Conv1d ``weight`` (out, in/groups, k)
-* LayerNorm ``scale`` and Embed ``embedding`` -> ``weight``
+  (the Mamba-2 block's depthwise ``conv1d``: (K, 1, C) -> (C, 1, K))
+* LayerNorm and gated RMSNorm ``scale``, Embed ``embedding`` -> ``weight``
 * the LSTM recurrent matrix ``hh`` (H, 4H) -> (4H, H)
 
-Biases, the rel-pos attention's ``pos_bias_u`` and ``pos_bias_v`` (H, d_k)
-and the RWKV mixing parameters (``time_*``) keep their layout.  A leaf of
+Biases, the rel-pos attention's ``pos_bias_u`` and ``pos_bias_v`` (H, d_k),
+the RWKV mixing parameters (``time_*``) and the Mamba-2 block's
+``dt_bias``, ``A_log`` and ``D`` (H,) keep their layout.  A leaf of
 any other name (a module the port does not have) raises KeyError.  WeNet
 checkpoints load through ``tools/convert_checkpoint.py``.
 """
@@ -37,7 +40,7 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 # the leaves of the ported modules besides the RWKV's ``time_*``
 _LEAVES = ("bias", "kernel", "scale", "embedding", "hh", "pos_bias_u",
-           "pos_bias_v")
+           "pos_bias_v", "dt_bias", "A_log", "D")
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:

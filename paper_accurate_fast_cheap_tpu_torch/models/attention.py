@@ -4,7 +4,10 @@
 ``rel_selfattn``, WeNet's form: ``(q+u)kᵀ + (q+v)pᵀ`` over the absolute
 sinusoids, no rel_shift) and ``ESPnetRelPositionMultiHeadedAttention``
 (``espnet_rel_selfattn``: the same, with the rel_shift when ``pos_emb`` has
-2T-1 rows).  The KV cache waits for streaming (ROADMAP Queue 1, item 11).
+2T-1 rows).  ``selfattn`` and ``rel_selfattn`` take the streaming KV
+cache (``cache``/``return_cache``): a fixed-size {"k", "v", "valid"} of the
+last Tc keys and values, prepended to the chunk's, with "valid" as the key
+mask.
 
 Plain tensor ops, not ``F.scaled_dot_product_attention``: masked logits are
 filled with ``NEG_INF`` before the softmax and the masked probabilities are
@@ -98,11 +101,31 @@ class MultiHeadedAttention(nn.Module):
         B, Tq = out.shape[:2]
         return dense(self.linear_out, out.reshape(B, Tq, self.d_model))
 
+    @staticmethod
+    def _with_cache(k, v, cache):
+        """Prepend the fixed-size KV cache {"k", "v", "valid"} (B, Tc, ...)
+        to the chunk's keys and values; returns (k, v, key mask (B, 1, Tc+T),
+        the new cache of the last Tc keys)."""
+        B, T = k.shape[:2]
+        Tc = cache["k"].shape[1]
+        k = torch.cat([cache["k"].to(k.dtype), k], dim=1)
+        v = torch.cat([cache["v"].to(v.dtype), v], dim=1)
+        valid = torch.cat([cache["valid"], torch.ones(
+            B, T, dtype=torch.bool, device=k.device)], dim=1)
+        n = k.shape[1] - Tc
+        return k, v, valid[:, None, :], {"k": k[:, n:], "v": v[:, n:],
+                                         "valid": valid[:, n:]}
+
     def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
-                pos_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos_emb: Optional[torch.Tensor] = None, cache=None,
+                return_cache: bool = False):
         q, k, v = self._qkv(x_q, x_kv)
-        return self._attend(torch.einsum("bthd,bshd->bhts", q, k), v, mask)
+        new_cache = None
+        if cache is not None:
+            k, v, mask, new_cache = self._with_cache(k, v, cache)
+        out = self._attend(torch.einsum("bthd,bshd->bhts", q, k), v, mask)
+        return (out, new_cache) if return_cache else out
 
 
 class RelPositionMultiHeadedAttention(MultiHeadedAttention):
@@ -136,12 +159,19 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
 
     def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
-                pos_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos_emb: Optional[torch.Tensor] = None, cache=None,
+                return_cache: bool = False):
+        """With a ``cache``, ``pos_emb`` covers the cache's and the
+        chunk's key positions."""
         if pos_emb is None:
             raise ValueError("rel_pos attention needs pos_emb")
         q, k, v = self._qkv(x_q, x_kv)
+        new_cache = None
+        if cache is not None:
+            k, v, mask, new_cache = self._with_cache(k, v, cache)
         scores = self._rel_scores(q, k, self._pos(pos_emb, q.dtype))
-        return self._attend(scores, v, mask)
+        out = self._attend(scores, v, mask)
+        return (out, new_cache) if return_cache else out
 
 
 def rel_shift(x: torch.Tensor) -> torch.Tensor:

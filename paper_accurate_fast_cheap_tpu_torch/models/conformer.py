@@ -9,7 +9,15 @@ is the JAX one: ``selfattn``, ``rel_selfattn``, ``espnet_rel_selfattn``
 tokens, ``models/lca.py``; its context and global tokens come from
 ``rwkv_conf``) and the RWKV-6 directions (``models/rwkv.py``; the eval
 controls ``bidirectional_layers`` and ``alt_decoding`` come from
-``rwkv_conf`` too); ``mamba_att`` waits for ROADMAP Queue 1, item 12a.4.
+``rwkv_conf`` too) and ``mamba_att`` (Mamba-2, ``models/mamba.py``: headdim
+``d_model // heads``, d_state 128, chunk 64, its direction from
+``rnn_att_direction``).
+
+Streaming (``return_state``): the chunk is fully valid, so no mask is made;
+each layer carries ``{"attn", "conv"}``: the uni RWKV's (x_prev, WKV state),
+the uni Mamba's {"conv", "ssd"} or the MHA's fixed-size KV cache (the last
+``att_cache_size`` keys, positions from ``offset - att_cache_size``, zero
+rows where t < 0), and the causal conv module's cache.
 Submodule names follow the flax tree (``embed``, ``layer_{i}``,
 ``RelPositionMultiHeadedAttention_{i}``, ``RWKVAttention_{i}``, ...,
 ``after_norm``) so ``convert.state_dict_from_jax`` is layout work only.  As
@@ -29,10 +37,12 @@ from paper_accurate_fast_cheap_tpu_torch.models.attention import (
 from paper_accurate_fast_cheap_tpu_torch.models.convolution import (
     ConvolutionModule, PositionwiseFeedForward)
 from paper_accurate_fast_cheap_tpu_torch.models.embedding import (
-    NoPositionalEncoding, PositionalEncoding, RelPositionalEncoding)
+    NoPositionalEncoding, PositionalEncoding, RelPositionalEncoding,
+    sinusoid_positions)
 from paper_accurate_fast_cheap_tpu_torch.models.layers import layer_norm
 from paper_accurate_fast_cheap_tpu_torch.models.lca import (
     LimitedRelPositionAttention)
+from paper_accurate_fast_cheap_tpu_torch.models.mamba import MambaAttention
 from paper_accurate_fast_cheap_tpu_torch.models.rwkv import RWKVAttention
 from paper_accurate_fast_cheap_tpu_torch.models.subsampling import (
     Conv2dSubsampling4)
@@ -79,9 +89,10 @@ def _make_attention(layer_type: str, heads: int, d_model: int,
             bidirectional_layers=rwkv_conf.get("bidirectional_layers"),
             alt_decoding=rwkv_conf.get("alt_decoding", False))
     if layer_type == "mamba_att":
-        raise NotImplementedError(
-            "attention type 'mamba_att' waits for ROADMAP Queue 1, item "
-            "12a.4 (Mamba-2)")
+        return MambaAttention(
+            head_size=d_model // heads, d_model=d_model,
+            direction=rwkv_conf.get("rnn_att_direction", "bi"),
+            spmd_axis=rwkv_conf.get("spmd_axis"))
     raise NotImplementedError(f"attention type {layer_type!r}")
 
 
@@ -91,7 +102,7 @@ class ConformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, linear_units: int,
                  dropout_rate: float = 0.1, cnn_module_kernel: int = 31,
                  cnn_module_norm: str = "layer_norm",
-                 activation: str = "swish"):
+                 activation: str = "swish", causal: bool = False):
         super().__init__()
         ln = lambda: nn.LayerNorm(d_model, eps=1e-5)  # noqa: E731
         ffn = lambda: PositionwiseFeedForward(  # noqa: E731
@@ -101,27 +112,47 @@ class ConformerEncoderLayer(nn.Module):
         self.norm_mha = ln()
         self.norm_conv = ln()
         self.conv_module = ConvolutionModule(d_model, cnn_module_kernel,
-                                             cnn_module_norm)
+                                             cnn_module_norm, causal)
         self.norm_ff = ln()
         self.feed_forward = ffn()
         self.norm_final = ln()
         self.dropout = nn.Dropout(dropout_rate)
 
     def forward(self, x, attn: nn.Module, att_mask=None, pos_emb=None,
-                pad_mask=None, lengths=None):
+                pad_mask=None, lengths=None, layer_state=None,
+                return_state: bool = False):
+        """With ``return_state`` returns (x, {"attn", "conv"}), the new
+        streaming state from ``layer_state`` (the zero state when None)."""
         drop = self.dropout
         x = x + 0.5 * drop(self.feed_forward_macaron(
             layer_norm(self.norm_ff_macaron, x)))
         y = layer_norm(self.norm_mha, x)
-        if isinstance(attn, RWKVAttention):
-            y = attn(y, lengths=lengths)
+        att_state = layer_state["attn"] if layer_state else None
+        new_state = {}
+        if isinstance(attn, (RWKVAttention, MambaAttention)):
+            if return_state:
+                y, new_state["attn"] = attn(y, lengths=lengths,
+                                            state=att_state,
+                                            return_state=True)
+            else:
+                y = attn(y, lengths=lengths)
+        elif return_state:
+            y, new_state["attn"] = attn(y, y, att_mask, pos_emb,
+                                        cache=att_state, return_cache=True)
         else:
             y = attn(y, y, att_mask, pos_emb)
         x = x + drop(y)
-        x = x + drop(self.conv_module(layer_norm(self.norm_conv, x),
-                                      pad_mask))
+        y = layer_norm(self.norm_conv, x)
+        if return_state:
+            y, new_state["conv"] = self.conv_module(
+                y, pad_mask, cache=layer_state["conv"] if layer_state
+                else None, return_cache=True)
+        else:
+            y = self.conv_module(y, pad_mask)
+        x = x + drop(y)
         x = x + 0.5 * drop(self.feed_forward(layer_norm(self.norm_ff, x)))
-        return layer_norm(self.norm_final, x)
+        x = layer_norm(self.norm_final, x)
+        return (x, new_state) if return_state else x
 
 
 class ConformerEncoder(nn.Module):
@@ -129,10 +160,9 @@ class ConformerEncoder(nn.Module):
     after_norm.
 
     Returns (encoded (B, T', D), out_lengths (B,)).  Pre-norm macaron
-    blocks with a non-causal conv module after conv2d subsampling; other
-    layouts raise NotImplementedError (the causal conv module waits for
-    ROADMAP Queue 1, item 11; other subsamplings and block layouts for item
-    12b).
+    blocks with a conv module (causal or not) after conv2d subsampling;
+    other layouts raise NotImplementedError (other subsamplings and block
+    layouts wait for ROADMAP Queue 1, item 12b).
     """
 
     def __init__(self, input_size: int = 80, output_size: int = 512,
@@ -150,10 +180,6 @@ class ConformerEncoder(nn.Module):
                  selfattention_layer_type: str = "rel_selfattn",
                  rwkv_conf: Optional[dict] = None, **unused: Any):
         super().__init__()
-        if causal:
-            raise NotImplementedError(
-                "the causal conv module waits for ROADMAP Queue 1, item 11 "
-                "(streaming)")
         if (input_layer != "conv2d" or pos_enc_layer_type not in EMB_CLASSES
                 or not (normalize_before and macaron_style
                         and use_cnn_module)):
@@ -163,6 +189,8 @@ class ConformerEncoder(nn.Module):
                 "positions; other layouts wait for ROADMAP Queue 1, item 12b")
         rwkv_conf = dict(rwkv_conf or {})
         self.num_blocks = num_blocks
+        self.attention_type = selfattention_layer_type
+        self.heads, self.output_size = attention_heads, output_size
         self.embed = Conv2dSubsampling4(input_size, output_size)
         self.pos_enc = EMB_CLASSES[pos_enc_layer_type](
             output_size, positional_dropout_rate)
@@ -176,13 +204,23 @@ class ConformerEncoder(nn.Module):
             self.attention_names.append(name)
             setattr(self, f"layer_{i}", ConformerEncoderLayer(
                 output_size, linear_units, dropout_rate, cnn_module_kernel,
-                cnn_module_norm, activation_type))
+                cnn_module_norm, activation_type, causal))
         self.after_norm = nn.LayerNorm(output_size, eps=1e-5)
 
-    def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor):
+    def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor, *,
+                streaming_state: Optional[dict] = None,
+                return_state: bool = False, offset: int = 0,
+                att_cache_size: int = 0):
+        """Full forward, or with ``return_state`` one streaming chunk:
+        positions from ``offset`` (encoder frames), no masks, and
+        ``streaming_state`` ({"layers": [per-layer state]}, None at the
+        start) carried; returns (xs, out_lens, new streaming state)."""
         xs, out_lens = self.embed(xs, xs_lens)
         out_lens = torch.clamp(out_lens, max=xs.shape[1])
-        xs, pos_emb = self.pos_enc(xs)
+        xs, pos_emb = self.pos_enc(xs, offset=offset)
+        if return_state:
+            return self._chunk(xs, out_lens, pos_emb, streaming_state,
+                               offset, att_cache_size)
         pad_mask = make_pad_mask(out_lens, xs.shape[1])
         att_mask = pad_mask[:, None, :]
         for i, name in enumerate(self.attention_names):
@@ -190,3 +228,38 @@ class ConformerEncoder(nn.Module):
                 xs, getattr(self, name), att_mask, pos_emb, pad_mask,
                 out_lens)
         return layer_norm(self.after_norm, xs), out_lens
+
+    def _chunk(self, xs, out_lens, pos_emb, streaming_state, offset: int,
+               att_cache_size: int):
+        """One streaming chunk through the blocks (the JAX encoder's
+        ``return_state`` branch)."""
+        layer_states = (streaming_state or {}).get("layers")
+        if self.attention_type in ("selfattn", "rel_selfattn"):
+            Tc, (B, T) = int(att_cache_size), xs.shape[:2]
+            d, h = self.output_size, self.heads
+            if layer_states is None:
+                zero = lambda: {  # noqa: E731
+                    "k": xs.new_zeros(B, Tc, h, d // h, dtype=torch.float32),
+                    "v": xs.new_zeros(B, Tc, h, d // h, dtype=torch.float32),
+                    "valid": torch.zeros(B, Tc, dtype=torch.bool,
+                                         device=xs.device)}
+                layer_states = [{"attn": zero(), "conv": None}
+                                for _ in range(self.num_blocks)]
+            # key positions offset - Tc .. offset + T, zero rows for t < 0
+            pe = sinusoid_positions(offset - Tc, Tc + T, d, xs.device)
+            pos_ids = offset - Tc + torch.arange(Tc + T, device=xs.device)
+            pos_emb = pe.masked_fill((pos_ids < 0)[:, None], 0.0)[None]
+        elif not isinstance(getattr(self, self.attention_names[0]),
+                            (RWKVAttention, MambaAttention)):
+            raise ValueError(
+                f"streaming: attention type {self.attention_type!r} has no "
+                "streaming state (selfattn, rel_selfattn, or a uni "
+                "rwkv_tmix60 or mamba_att)")
+        new_states = []
+        for i, name in enumerate(self.attention_names):
+            xs, st = getattr(self, f"layer_{i}")(
+                xs, getattr(self, name), None, pos_emb, None, out_lens,
+                layer_states[i] if layer_states else None, True)
+            new_states.append(st)
+        return (layer_norm(self.after_norm, xs), out_lens,
+                {"layers": new_states})

@@ -1,9 +1,9 @@
 """Model factory from WeNet-style config dicts (port of the JAX
 ``models/factory.py`` for ``model: transducer`` with ``predictor: rnn`` and
 ``model: asr_model``, both on ``encoder: conformer`` with any attention of
-the JAX registry but ``mamba_att``, with an optional ``decoder:
-transformer`` or ``bitransformer``; other families wait for later
-slices)."""
+the JAX registry (``mamba_att`` included) and a causal or non-causal conv
+module, with an optional ``decoder: transformer`` or ``bitransformer``;
+other families wait for later slices)."""
 from __future__ import annotations
 
 import logging

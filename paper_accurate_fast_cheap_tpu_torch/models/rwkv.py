@@ -24,7 +24,6 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from paper_accurate_fast_cheap_tpu_torch.models.layers import (
     dense, layer_norm, uniform_)
@@ -100,11 +99,20 @@ class RWKVTimeMix(nn.Module):
         uniform_(self.time_maa_rkvw_w2, -0.01, 0.01, g)
         uniform_(self.time_decay_w2, -0.01, 0.01, g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, state=None,
+                return_state: bool = False):
+        """x (B, T, C).  ``state`` (streaming): (x_prev (B, 1, C), the f32
+        WKV state (B, H, N, N)); x_prev takes the token shift's zero row.
+        With ``return_state`` returns (y, (x[:, -1:], the new WKV
+        state)), the WKV state carried through K1."""
         B, T, _ = x.shape
         dt = x.dtype
-        # token shift: xx_t = x_{t-1} - x_t (zero at t=0)
-        xx = F.pad(x, (0, 0, 1, 0))[:, :-1] - x
+        # token shift: xx_t = x_{t-1} - x_t (zero or carried at t=0)
+        if state is not None:
+            lead, wkv_state = state[0].to(dt), state[1]
+        else:
+            lead, wkv_state = x.new_zeros(B, 1, x.shape[-1]), None
+        xx = torch.cat([lead, x[:, :-1]], dim=1) - x
         xxx = x + xx * self.time_maa_x.to(dt)
         mix = torch.tanh(xxx @ self.time_maa_rkvw_w1.to(dt))
         mix = mix.reshape(B, T, 4, D_MIX_LORA)
@@ -122,9 +130,13 @@ class RWKVTimeMix(nn.Module):
             @ self.time_decay_w2.to(dt))
         shp = (B, T, self.n_head, self.head_size)
         y = wkv6_cuda(r.reshape(shp), k.reshape(shp), v.reshape(shp),
-                      w.to(r.dtype).reshape(shp), self.time_faaaa.to(r.dtype))
+                      w.to(r.dtype).reshape(shp), self.time_faaaa.to(r.dtype),
+                      state=wkv_state, return_state=return_state)
+        if return_state:
+            y, new_wkv = y
         y = layer_norm(self.ln_x, y.reshape(B, T, -1))
-        return dense(self.output, y)
+        y = dense(self.output, y)
+        return (y, (x[:, -1:], new_wkv)) if return_state else y
 
 
 def flip_padded(x: torch.Tensor, lengths: Optional[torch.Tensor]):
@@ -186,12 +198,22 @@ class RWKVAttention(nn.Module):
             return True, False
         return True, True
 
-    def forward(self, x: torch.Tensor, lengths=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths=None, state=None,
+                return_state: bool = False):
+        """With ``return_state`` (``uni`` only: the other directions need
+        the future) returns (y, the time-mix's streaming state)."""
         in_dtype = x.dtype
         if self.do_bfloat16:
             x = x.to(torch.bfloat16)
         if self.direction == "uni":
+            if return_state:
+                y, new_state = self.tmix(x, state=state, return_state=True)
+                return y.to(in_dtype), new_state
             return self.tmix(x).to(in_dtype)
+        if return_state:
+            raise ValueError("streaming state requires direction='uni' "
+                             "(bidirectional attention needs the full "
+                             "future context)")
         l2r, r2l = self._passes()
         if l2r:
             y = self.tmix(x)

@@ -14,7 +14,8 @@ as they are; the rules that change something:
   RWKV time_* mixing tensors           -> squeezed to the port's shapes
 
 It covers the conformer blocks with RWKV-6 (uni, bi, direction dropout),
-MHA, rel-pos MHA or LCA attention, the CTC head, both attention decoders,
+Mamba-2 (uni, bi: mamba_ssm's ``Mamba2`` state dict), MHA, rel-pos MHA or
+LCA attention, the CTC head, both attention decoders,
 the LSTM predictor and the transducer joint, as the JAX converter does (the
 reference LCA's ``global_q/k/v`` have no counterpart in either package).
 It is non-strict: it starts from the model ``init_model`` builds from
@@ -95,6 +96,18 @@ class _Converter:
             self.dense(f"{src}.{name}", f"{dst}.{name}", bias=False)
         self.norm(f"{src}.ln_x", f"{dst}.ln_x")
 
+    def mamba2(self, src: str, dst: str) -> None:
+        """mamba_ssm's Mamba2 state dict -> a ``Mamba2Block``: the depthwise
+        conv keeps torch's (C, 1, K) kernel, its bias is optional."""
+        self.dense(f"{src}.in_proj", f"{dst}.in_proj", bias=False)
+        self.put(f"{dst}.conv1d.weight", self.get(f"{src}.conv1d.weight"))
+        if self.has(f"{src}.conv1d.bias"):
+            self.put(f"{dst}.conv1d.bias", self.get(f"{src}.conv1d.bias"))
+        for name in ("dt_bias", "A_log", "D"):
+            self.put(f"{dst}.{name}", self.get(f"{src}.{name}"))
+        self.put(f"{dst}.norm.weight", self.get(f"{src}.norm.weight"))
+        self.dense(f"{src}.out_proj", f"{dst}.out_proj", bias=False)
+
 
 def _subsampling(c: _Converter) -> None:
     if not c.has("encoder.embed.conv.0.weight"):
@@ -145,6 +158,16 @@ def _encoder_layer(c: _Converter, i: int) -> None:
                    f"{att}.tmix_rev")
         else:
             c.tmix(f"{src}.self_attn.tmix_block", f"{att}.tmix")
+    # mamba attention (the reference's self_attn.mamba; bi wraps two)
+    att = f"encoder.MambaAttention_{i}"
+    if c.owns(att):
+        if c.owns(f"{att}.mamba_bwd"):
+            c.mamba2(f"{src}.self_attn.mamba.mamba_forward",
+                     f"{att}.mamba_fwd")
+            c.mamba2(f"{src}.self_attn.mamba.mamba_backward",
+                     f"{att}.mamba_bwd")
+        else:
+            c.mamba2(f"{src}.self_attn.mamba", f"{att}.mamba_fwd")
     # MHA / rel-pos MHA / limited-context (LCA) attention
     for cls in ("MultiHeadedAttention", "RelPositionMultiHeadedAttention",
                 "LimitedRelPositionAttention"):

@@ -1,7 +1,7 @@
 """Every YAML under ``examples/gigaspeech/conf/`` builds with the port's
 ``init_model`` (cut to one encoder block), with the attention its
-``selfattention_layer_type`` names; the Mamba-2 YAMLs and the causal
-streaming YAML raise NotImplementedError naming their ROADMAP items."""
+``selfattention_layer_type`` names (the Mamba-2 YAMLs with their direction,
+the causal streaming YAML with a causal conv module); nothing is refused."""
 import glob
 import os
 
@@ -18,9 +18,10 @@ YAMLS = sorted(glob.glob(os.path.join(ROOT, "examples", "gigaspeech",
 CLASSES = {
     "rel_selfattn": "RelPositionMultiHeadedAttention",
     "limited_rel_selfattn": "LimitedRelPositionAttention",
+    "mamba_att": "MambaAttention",
 }
 # what the port does not build yet, by the ROADMAP item its refusal names
-REFUSED = {"mamba_att": "12a.4", "causal": "item 11"}
+REFUSED = {}
 
 
 def test_the_library_is_complete():
@@ -34,8 +35,7 @@ def test_yaml_builds(path):
     enc = config["encoder_conf"]
     enc["num_blocks"] = 1
     kind = enc["selfattention_layer_type"]
-    refused = ("causal" if enc.get("causal") else
-               kind if kind in REFUSED else None)
+    refused = next((k for k in REFUSED if k == kind or enc.get(k)), None)
     if refused:
         with pytest.raises(NotImplementedError, match=REFUSED[refused]):
             factory.init_model(config, 40, 80, device="cpu",
@@ -47,6 +47,12 @@ def test_yaml_builds(path):
     assert kind_built == config.get("model", "asr_model")
     attn = getattr(model.encoder, model.encoder.attention_names[0])
     assert type(attn).__name__ == CLASSES.get(kind, "RWKVAttention")
+    assert model.encoder.layer_0.conv_module.causal == bool(
+        enc.get("causal", False))
+    if kind == "mamba_att":
+        assert attn.direction == enc["rnn_att_direction"]
+        assert attn.mamba_fwd.nheads == 2 * enc["output_size"] // (
+            enc["output_size"] // enc["attention_heads"])
     if kind == "limited_rel_selfattn":
         assert attn.context_size == tuple(enc["att_context_size"])
         assert attn.global_tokens == enc["global_tokens"]

@@ -1,9 +1,11 @@
 """The port's WeNet checkpoint converter against the JAX package's.
 
-Fake reference-named state_dicts (no download) for three models: a
+Fake reference-named state_dicts (no download) for five models: a
 conformer with bidirectional RWKV-6 and the bitransformer decoder
-(``ASRModel``), a rel-pos MHA transducer, and an LCA transducer with a
-global token (whose reference ``global_q/k/v`` neither package reads).
+(``ASRModel``), a rel-pos MHA transducer, an LCA transducer with a
+global token (whose reference ``global_q/k/v`` neither package reads), and
+bi and uni Mamba-2 transducers (mamba_ssm's ``Mamba2`` tensors through
+``_mamba2``; the uni one without the optional conv bias).
 Every tensor of the port's ``convert_state_dict`` equals
 ``state_dict_from_jax`` of the JAX ``convert_state_dict`` bit for bit; the
 port's model loads the result strictly and its encoder matches JAX's on the
@@ -59,7 +61,14 @@ CASES = {
     "mha_transducer": _config("rel_selfattn", "transducer"),
     "lca_gt_transducer": _config("limited_rel_selfattn", "transducer",
                                  att_context_size=[4, 4], global_tokens=1),
+    "mambabi_transducer": _config("mamba_att", "transducer",
+                                  rnn_att_direction="bi"),
+    "mamba_uni_transducer": _config("mamba_att", "transducer",
+                                    rnn_att_direction="uni"),
 }
+# the Mamba-2 block at d = 32: d_inner 64, headdim D / HEADS, d_state 128
+M_IN, M_N, M_CONV = 2 * D, 128, 4
+M_H = M_IN // (D // HEADS)
 
 
 def _fake_ref_state_dict(case: str, seed: int = 0) -> dict:
@@ -105,6 +114,22 @@ def _fake_ref_state_dict(case: str, seed: int = 0) -> dict:
                 for n in ("receptance", "key", "value", "output"):
                     lin(f"{pre}.{n}", D, D, bias=False)
                 sd[f"{pre}.ln_x.weight"], sd[f"{pre}.ln_x.bias"] = f(D), f(D)
+        elif case.startswith("mamba"):
+            pres = ([f"{src}.self_attn.mamba.mamba_forward",
+                     f"{src}.self_attn.mamba.mamba_backward"]
+                    if case.startswith("mambabi") else
+                    [f"{src}.self_attn.mamba"])
+            conv_dim = M_IN + 2 * M_N
+            for pre in pres:
+                lin(f"{pre}.in_proj", 2 * M_IN + 2 * M_N + M_H, D,
+                    bias=False)
+                sd[f"{pre}.conv1d.weight"] = f(conv_dim, 1, M_CONV)
+                if case.startswith("mambabi"):
+                    sd[f"{pre}.conv1d.bias"] = f(conv_dim)
+                for n in ("dt_bias", "A_log", "D"):
+                    sd[f"{pre}.{n}"] = f(M_H)
+                sd[f"{pre}.norm.weight"] = f(M_IN)
+                lin(f"{pre}.out_proj", D, M_IN, bias=False)
         else:
             sa = f"{src}.self_attn"
             for n in ("linear_q", "linear_k", "linear_v", "linear_out"):

@@ -147,11 +147,12 @@ def test_bitransformer_decoder(reverse_weight):
 
 
 def test_bridge_refuses_unknown_leaves():
-    """A flax leaf the port has no module for (here Mamba-2's ``A_log``,
-    not ported) raises instead of being copied."""
-    tree = {"encoder": {"MambaAttention_0": {"mamba_fwd": {
-        "A_log": np.zeros((HEADS,), np.float32)}}}}
-    with pytest.raises(KeyError, match="A_log"):
+    """A flax leaf the port has no module for (here LoRA's ``lora_A``,
+    not ported; Mamba-2's ``A_log``, the example before Mamba-2 was
+    ported, now converts) raises instead of being copied."""
+    tree = {"encoder": {"layer_0": {"LoRADense_0": {
+        "lora_A": np.zeros((D, 4), np.float32)}}}}
+    with pytest.raises(KeyError, match="lora_A"):
         state_dict_from_jax(tree)
 
 

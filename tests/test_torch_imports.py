@@ -36,15 +36,19 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 20
     # the training slice's modules and those of the attention decoder, the
-    # short-form CLI, the crash-repro tool, the encoder's attention types
-    # and the WeNet converter are among those imported
+    # short-form CLI, the crash-repro tool, the encoder's attention types,
+    # the WeNet converter, Mamba-2 and the streaming and serving surface are
+    # among those imported
     assert {f"{PKG}.{m}" for m in (
         "ops.ffn", "ops.rnnt", "train.schedulers", "train.train_step",
         "bin.train_bench", "ops.multi_product", "ops.losses",
         "models.attention", "models.decoder", "models.asr_model",
         "data.pipeline", "bin.recognize",
         "tools.repro_tpu_worker_crash", "models.lca", "models.conformer",
-        "models.embedding", "tools.convert_checkpoint")} <= set(mods)
+        "models.embedding", "tools.convert_checkpoint", "ops.ssd",
+        "models.mamba", "decode.streaming", "streaming",
+        "bin.streaming_bench", "api", "bin.serve", "bin.ws_client",
+        "tools.latency_metrics")} <= set(mods)
 
 
 def test_port_sources_do_not_name_the_jax_package():
@@ -77,9 +81,9 @@ def test_entry_points_default_to_cuda():
     import pytest
     import torch
 
-    from paper_accurate_fast_cheap_tpu_torch import resolve_device
+    from paper_accurate_fast_cheap_tpu_torch import api, resolve_device
     from paper_accurate_fast_cheap_tpu_torch.bin import (
-        recognize_wav, train_bench)
+        recognize_wav, serve, streaming_bench, train_bench)
     from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
     from paper_accurate_fast_cheap_tpu_torch.models import factory
 
@@ -103,5 +107,13 @@ def test_entry_points_default_to_cuda():
                             "--wav", "x.wav", "--output_dir", "out"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_bench.main(["--config", "c.json"])
+    # the streaming bench, the API and the server (any directory: the
+    # device is asked for before the model is read)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        streaming_bench.main(["--config", "c.json"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.load_model(ROOT)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--model_dir", ROOT])
     model, _ = factory.init_model(conf, 40, 80, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
