@@ -1198,23 +1198,25 @@ def attention_config(yaml_path: str = MHA_YAML, **encoder) -> dict:
                                           **encoder))
 
 
-def lca_config(context: int, global_tokens: int = 1) -> dict:
+def lca_config(context: int, global_tokens: int = 1, **encoder) -> dict:
     return attention_config(
         selfattention_layer_type="limited_rel_selfattn",
         att_context_size=[context, context], global_tokens=global_tokens,
-        global_tokens_spacing=1)
+        global_tokens_spacing=1, **encoder)
 
 
-def as_lca(mha_model, context: int, global_tokens: int = 1):
-    """The MHA model's weights in its LCA twin (the same parameters), on
-    the MHA model's device and dtype."""
+def as_lca(mha_model, context: int, global_tokens: int = 1, **encoder):
+    """The MHA model's weights in its LCA twin (the same parameters; the
+    encoder keys ``encoder`` as the MHA model's), on the MHA model's
+    device and dtype."""
     from paper_accurate_fast_cheap_tpu_torch.convert import (
         as_limited_context)
     from paper_accurate_fast_cheap_tpu_torch.models import factory
 
     w = next(mha_model.parameters())
-    model, _ = factory.init_model(lca_config(context, global_tokens), VOCAB,
-                                  80, device="cpu")
+    model, _ = factory.init_model(lca_config(context, global_tokens,
+                                             **encoder), VOCAB, 80,
+                                  device="cpu")
     model.load_state_dict(as_limited_context(mha_model.state_dict()))
     return model.to(device=w.device, dtype=w.dtype).eval()
 
@@ -1651,12 +1653,13 @@ def phase_cli(paths, card: str):
 
 
 def _cli_run(recognize_wav, paths, name, route, card, align_s,
-             extra=(), wkv=24):
-    """One CLI run (``extra`` flags added), counters zeroed just before and
-    read just after.  Returns (ok, counts)."""
+             extra=(), wkv=24, tag=None):
+    """One CLI run (``extra`` flags added) into ``out_<tag or name>``,
+    counters zeroed just before and read just after.  Returns (ok,
+    counts)."""
     import torch
 
-    out = os.path.join(os.path.dirname(paths["wav"]), f"out_{name}")
+    out = os.path.join(os.path.dirname(paths["wav"]), f"out_{tag or name}")
     zero_counts()
     t0 = time.perf_counter()
     rc = recognize_wav.main([
@@ -2771,7 +2774,7 @@ def phase_server(work: str, rng, model, config) -> bool:
     with open(os.path.join(d, "train.yaml"), "w") as f:
         json.dump(dict(config, tokenizer="whitespace",
                        tokenizer_conf={"symbol_table_path": "units.txt"}), f)
-    torch.save(model.state_dict(), os.path.join(d, "model.pt"))
+    torch.save(model.state_dict(), os.path.join(d, "epoch_0000.pt"))
     m = api.load_model(d)
     wav_paths, quantized = [], []
     for i, secs in enumerate((3.7, 5.1, 2.6)):
@@ -2819,6 +2822,427 @@ def phase_server(work: str, rng, model, config) -> bool:
             + f", words per text {[len(t.split()) for t in got_stream]} "
             f"{'ok' if good else 'FAIL'}")
     return ok
+
+# ---------------------------------------------------------------- slice 11
+
+
+def chunk_mask_reference_models() -> dict:
+    """The chunk-masked attention references, f32, on the card: the MHA
+    baseline's encoder cut to 2 blocks with ``static_chunk_size`` 16 (the
+    full forward masks attention to the chunk and all history, in decode
+    as in JAX), damped as the main path's, and its LCA 16 + 1 global token
+    twin with the same chunk on its weights."""
+    chunk = dict(num_blocks=2, static_chunk_size=16)
+    mha = damp_attention(build_model(
+        config=attention_config(**chunk), seed=30,
+        label="MHA, 2 blocks, static_chunk_size 16"))
+    return {"MHA, 2 blocks, static_chunk_size 16": mha,
+            "LCA 16 + 1 global token, 2 blocks, static_chunk_size 16":
+                as_lca(mha, 16, **chunk)}
+
+
+def phase_search_reference(model, rng) -> bool:
+    """The transducer searches this slice adds, on the flagship at full
+    width in f32 (its bf16 RWKV cast off), 2 x 10 s (249 and 199 encoder
+    frames): the host-loop beam oracle against the device beam on the
+    card (``auto``: K2), tokens and n-best identical, with K3 launches
+    counted in each (frames + 1); then the greedy search with 1 and 3
+    symbols a frame on the card against the CPU (the same encoder output),
+    K3 launches 1 + n_steps x frames.  Returns ok."""
+    import copy
+
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.decode import rnnt_search
+    from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
+    from paper_accurate_fast_cheap_tpu_torch.models.rwkv import RWKVAttention
+
+    B, S = 2, 10 * 16000
+    wavs = (rng.randn(B, S) * 0.1).astype(np.float32)
+    lens = np.asarray([S, S - 32000], np.int64)
+    stats = _cmvn_stats(pipeline.make_feature_fn({}, None, device="cpu"),
+                        torch.from_numpy(wavs), torch.from_numpy(lens))
+    for mod in model.modules():
+        if isinstance(mod, RWKVAttention):
+            mod.do_bfloat16 = False
+    try:
+        feats, flens = pipeline.make_feature_fn({}, stats)(
+            torch.from_numpy(wavs).cuda(), torch.from_numpy(lens).cuda())
+        enc, elens = model.forward_encoder(feats, flens)
+        logp = model.ctc_logprobs(enc)
+    finally:
+        for mod in model.modules():
+            if isinstance(mod, RWKVAttention):
+                mod.do_bfloat16 = True
+    T = enc.shape[1]
+    fns = rnnt_search.make_transducer_step_fns(model)
+    out, ok = {}, True
+    for impl in ("host", "device"):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[impl] = rnnt_search.rnnt_beam_search(
+            *fns, enc, elens, logp, beam_size=BEAM, impl=impl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = dict.fromkeys(counts, 0)
+        want["lstm_step"] = T + 1
+        if impl == "device":
+            want["joint_topk"] = T
+        good = counts == want
+        ok = ok and good
+        log(f"search reference, {impl} beam (B={B}, 10 s, {T} frames, f32, "
+            f"beam {BEAM}): {wall:.2f} s, counters {json.dumps(counts)}, "
+            f"expected {json.dumps(want)} {'ok' if good else 'FAIL'}")
+    same = all(a.tokens == b.tokens and a.nbest == b.nbest
+               for a, b in zip(out["host"], out["device"]))
+    close = all(np.allclose(a.nbest_scores, b.nbest_scores, rtol=1e-4)
+                for a, b in zip(out["host"], out["device"]))
+    good = same and close and any(r.tokens for r in out["host"])
+    ok = ok and good
+    log(f"search reference: host oracle vs device beam on the card, tokens "
+        f"and n-best identical {same}, n-best scores within 1e-4 rel "
+        f"{close}, tokens per utterance "
+        f"{[len(r.tokens) for r in out['host']]} {'ok' if good else 'FAIL'}")
+    cpu = copy.deepcopy(model).to("cpu")
+    cpu_fns = rnnt_search.make_transducer_step_fns(cpu)
+    for n_steps in (1, 3):
+        zero_counts()
+        got = rnnt_search.basic_greedy_search(
+            fns[0], fns[1], fns[2](B), enc, elens, n_steps=n_steps)
+        counts = read_counts()
+        want = dict.fromkeys(counts, 0)
+        want["lstm_step"] = 1 + n_steps * T
+        ref = rnnt_search.basic_greedy_search(
+            cpu_fns[0], cpu_fns[1], cpu_fns[2](B), enc.cpu(), elens.cpu(),
+            n_steps=n_steps)
+        same = [r.tokens for r in got] == [r.tokens for r in ref]
+        good = same and counts == want and any(r.tokens for r in got)
+        ok = ok and good
+        log(f"greedy, n_steps {n_steps} (B={B}, {T} frames, f32): card vs "
+            f"CPU tokens identical {same}, tokens per utterance "
+            f"{[len(r.tokens) for r in got]}, card counters "
+            f"{json.dumps(counts)}, expected {json.dumps(want)} "
+            f"{'ok' if good else 'FAIL'}")
+    del cpu
+    return ok
+
+
+def phase_cli_sort(paths, card: str) -> bool:
+    """recognize_wav with ``--beam_merge sort`` at the standard CLI
+    geometry (the standard flagship, 32 x 90 s, beam 8, bf16), counters
+    zeroed just before and read just after: TXT and CTM byte for byte equal
+    to the pairwise run's (phase_cli).  The merges rank two distinct
+    prefixes that tie on their exact merged score differently, so on a
+    mismatch both runs are repeated and each window's best scores printed,
+    to tell such a tie from a fault.  Returns ok."""
+    from paper_accurate_fast_cheap_tpu_torch.bin import recognize_wav
+    from paper_accurate_fast_cheap_tpu_torch.decode import rnnt_search
+
+    ok, _ = _cli_run(recognize_wav, paths, "standard", "joint_topk", card,
+                     [], extra=("--beam_merge", "sort"), tag="standard_sort")
+    d = os.path.dirname(paths["wav"])
+    same = {}
+    for ext in ("txt", "ctm"):
+        with open(os.path.join(d, "out_standard", f"episode.{ext}"),
+                  "rb") as a, open(os.path.join(d, "out_standard_sort",
+                                                f"episode.{ext}"), "rb") as b:
+            same[ext] = a.read() == b.read()
+    good = ok and all(same.values())
+    log(f"CLI --beam_merge sort vs pairwise: TXT identical {same['txt']}, "
+        f"CTM identical {same['ctm']} {'ok' if good else 'FAIL'}")
+    if not all(same.values()):
+        finalize = rnnt_search.finalize_device_beam
+        found = {}
+        for merge in ("pairwise", "sort"):
+            found[merge] = []
+
+            def keep(*a, _into=found[merge], **k):
+                res = finalize(*a, **k)
+                _into.extend(res)
+                return res
+
+            rnnt_search.finalize_device_beam = keep
+            try:
+                _cli_run(recognize_wav, paths, "standard", "joint_topk",
+                         card, [], extra=("--beam_merge", merge),
+                         tag=f"standard_{merge}_again")
+            finally:
+                rnnt_search.finalize_device_beam = finalize
+        for w, (a, b) in enumerate(zip(found["pairwise"], found["sort"])):
+            log(f"  window {w}: tokens "
+                f"{'identical' if a.tokens == b.tokens else 'differ'} "
+                f"({len(a.tokens)} / {len(b.tokens)}); best scores "
+                f"{a.nbest_scores[:2]} (pairwise) vs {b.nbest_scores[:2]} "
+                "(sort)")
+    return good
+
+
+LETTERS = "abcdefghijklmnopqrstuvwxyz"
+# ~1250 s of audio: ~9 steps of <= 20000 padded frames an epoch, so 2
+# epochs give ~16 step intervals inside an epoch for the median
+TRAIN_CLI_UTTS, TRAIN_CLI_CV, TRAIN_CLI_EPOCHS = 144, 4, 2
+
+
+def _write_shards(d: str, rng, name: str, n: int, per_shard: int):
+    """``n`` seeded utterances of 2-15 s (noise, random letter
+    transcripts of ~10 characters a second) as WeNet tar shards of
+    ``per_shard``; returns (list file, audio seconds, the WAVs)."""
+    import io
+    import tarfile
+
+    paths, seconds, wavs = [], 0.0, []
+    for s0 in range(0, n, per_shard):
+        path = os.path.join(d, f"{name}_{s0 // per_shard}.tar")
+        with tarfile.open(path, "w") as tf:
+            for i in range(s0, min(n, s0 + per_shard)):
+                samples = int(rng.uniform(2.0, 15.0) * 16000)
+                pcm = np.clip(rng.randn(samples) * 0.1 * 32768, -32768,
+                              32767).astype(np.int16)
+                wav = os.path.join(d, f"{name}{i:03d}.wav")
+                _write_wav(wav, pcm)
+                wavs.append(wav)
+                seconds += samples / 16000.0
+                # ~10 characters a second, as read speech
+                txt = ""
+                while len(txt) < 10 * samples / 16000:
+                    txt += "".join(rng.choice(list(LETTERS),
+                                              rng.randint(1, 8))) + " "
+                txt = txt.strip()
+                for ext, data in (("txt", txt.encode()),
+                                  ("wav", open(wav, "rb").read())):
+                    info = tarfile.TarInfo(f"{name}{i:03d}.{ext}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+        paths.append(path)
+    lst = os.path.join(d, f"{name}.list")
+    with open(lst, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return lst, seconds, wavs
+
+
+def phase_train_cli(work: str, rng):
+    """bin/train.py at full width on the paper's YAML (the flagship plus
+    the bitransformer decoder; Adam, steadylr, clip 0.1), overridden to a
+    ``char`` units file and JSON CMVN written here, ``dtype: bf16`` (mixed
+    precision) and a log line every step; its data pipeline as the YAML
+    sets it (dynamic batches of 20000 frames, shuffle, sort, dither 1.0,
+    SpecAugment) over 144 synthetic utterances of 2-15 s in 12 tar shards,
+    2 epochs, each with cv (4 utterances), counters zeroed just before and
+    read just after: K1 launches = 24 x encoder forwards.  Step seconds are
+    the host clock between consecutive per-step log lines (the loss read
+    each step) of one epoch.  Then average_model over the 2 epoch
+    checkpoints against their f64 mean, and api.load_model on the run
+    directory with transcribe_batch.  Returns (ok, step seconds)."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch import api
+    from paper_accurate_fast_cheap_tpu_torch.bin import average_model, train
+    from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
+    from paper_accurate_fast_cheap_tpu_torch.models.conformer import (
+        ConformerEncoder)
+    from paper_accurate_fast_cheap_tpu_torch.train import checkpointing
+
+    d = os.path.join(work, "train_cli")
+    os.makedirs(d)
+    units = os.path.join(d, "units.txt")
+    with open(units, "w") as f:
+        f.write("<blank> 0\n<unk> 1\n<sos/eos> 2\n▁ 3\n" + "".join(
+            f"{c} {4 + i}\n" for i, c in enumerate(LETTERS)))
+    train_list, train_s, wavs = _write_shards(d, rng, "train",
+                                              TRAIN_CLI_UTTS, 12)
+    cv_list, _, cv_wavs = _write_shards(d, rng, "cv", TRAIN_CLI_CV, 4)
+    head = torch.from_numpy(np.concatenate([
+        _read_pcm(w) for w in wavs[:8]]).astype(np.float32) / 32768.0)[None]
+    feats, _ = pipeline.make_feature_fn({}, None)(
+        head, torch.tensor([head.shape[1]]))
+    feats = feats[0].double()
+    cmvn = os.path.join(d, "cmvn.json")
+    with open(cmvn, "w") as f:
+        json.dump({"mean_stat": feats.sum(0).tolist(),
+                   "var_stat": (feats ** 2).sum(0).tolist(),
+                   "frame_num": feats.shape[0]}, f)
+    run = os.path.join(d, "run")
+    overrides = ["tokenizer=char", f"tokenizer_conf.symbol_table_path={units}",
+                 f"cmvn_conf.cmvn_file={cmvn}", "dtype=bf16",
+                 "log_interval=1"]
+    argv = ["--config", os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), PAPER_YAML), "--train_data", train_list, "--cv_data",
+            cv_list, "--data_type", "shard", "--model_dir", run,
+            "--num_epochs", str(TRAIN_CLI_EPOCHS), "--seed", "3"]
+    for o in overrides:
+        argv += ["--override_config", o]
+    forwards = [0]
+    enc_forward = ConformerEncoder.forward
+
+    def counted(self, *a, **k):
+        forwards[0] += 1
+        return enc_forward(self, *a, **k)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ConformerEncoder.forward = counted
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        rc = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        ConformerEncoder.forward = enc_forward
+    with open(os.path.join(run, "logs", "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    steps = [r for r in recs if "train/loss" in r]
+    epochs = [checkpointing.load_checkpoint(os.path.join(
+        run, f"epoch_{e:04d}")) for e in range(TRAIN_CLI_EPOCHS)]
+    ends = {info["step"] for _, _, info in epochs}
+    # intervals inside an epoch (not across a cv and a save)
+    pairs = [(a, b) for a, b in zip(steps, steps[1:]) if a["step"] not in ends]
+    step_s = [b["time"] - a["time"] for a, b in pairs]
+    frames = [b["train/frames_seen"] - a["train/frames_seen"]
+              for a, b in pairs]
+    losses = [r["train/loss"] for r in steps]
+    want = dict.fromkeys(counts, 0)
+    want["wkv6_fwd"] = 24 * forwards[0]
+    cv_loss = [info["cv_loss"] for _, _, info in epochs]
+    cv_forwards = forwards[0] - len(steps)
+    good = (rc == 0 and counts == want
+            and len(step_s) == len(steps) - TRAIN_CLI_EPOCHS >= 12
+            # 4 cv utterances of <= 15 s: one batch a cv
+            and cv_forwards == TRAIN_CLI_EPOCHS
+            and all(np.isfinite(losses)) and all(np.isfinite(cv_loss)))
+    log(f"training CLI (bin/train.py, {PAPER_YAML}, char units, mixed "
+        f"precision, {TRAIN_CLI_UTTS} utterances = {train_s:.1f} s of audio "
+        f"in 12 tar shards, dynamic batches of 20000 frames, dither and "
+        f"SpecAugment on, {TRAIN_CLI_EPOCHS} epochs, each with cv): "
+        f"{wall:.2f} s with the model build, the data pipeline, cv and "
+        f"checkpoints; {len(steps)} steps, loss {losses[0]:.3f} -> "
+        f"{losses[-1]:.3f}, cv_loss {[round(c, 3) for c in cv_loss]}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    q = np.percentile(step_s, [10, 50, 90])
+    log(f"training CLI step seconds ({len(step_s)} intervals inside an "
+        f"epoch, host clock between the per-step log lines, loss read each "
+        f"step) {[round(s, 4) for s in step_s]}; p10 / median / p90 "
+        f"{q[0]:.4f} / {q[1]:.4f} / {q[2]:.4f} s; feature frames per step "
+        f"{frames}; median feature frames per second "
+        f"{float(np.median(np.asarray(frames) / np.asarray(step_s))):.0f}; "
+        f"audio seconds per second of the whole call "
+        f"{TRAIN_CLI_EPOCHS * train_s / wall:.1f}")
+    log(f"training CLI counters {json.dumps(counts)}, expected "
+        f"{json.dumps(want)} (K1 launches = 24 x {forwards[0]} encoder "
+        f"forwards: {len(steps)} steps + {cv_forwards} cv batches) "
+        f"{'ok' if good else 'FAIL'}")
+    dst = os.path.join(run, "avg_2")
+    avg_rc = average_model.main(["--src_path", run, "--dst_path", dst,
+                                 "--num", "2", "--config",
+                                 os.path.join(run, "train.yaml")])
+    avg, _, _ = checkpointing.load_checkpoint(dst)
+    (a, _, _), (b, _, _) = epochs
+    avg_err = max(float((avg[k].double() - ((a[k].double() + b[k].double())
+                                            / 2).to(a[k].dtype).double())
+                         .abs().max()) for k in a)
+    moved = any(not torch.equal(a[k], b[k]) for k in a)
+    avg_ok = avg_rc == 0 and avg_err == 0.0 and moved
+    m = api.load_model(run)
+    texts = m.transcribe_batch([_read_pcm(w).astype(np.float32) / 32768.0
+                                for w in cv_wavs[:2]])
+    picked = os.path.basename(api._last_checkpoint(run))
+    load_ok = (picked == f"epoch_{TRAIN_CLI_EPOCHS - 1:04d}.pt"
+               and all(isinstance(t, str) for t in texts))
+    log(f"average_model over the run's 2 epoch checkpoints: max |avg - "
+        f"f64 mean cast back| {avg_err}, the epochs differ {moved}; "
+        f"api.load_model(run) picked {picked}, transcribe_batch on 2 cv "
+        f"WAVs: {[len(t) for t in texts]} characters "
+        f"{'ok' if avg_ok and load_ok else 'FAIL'}")
+    log(f"training CLI card: {nvidia_smi()}")
+    return good and avg_ok and load_ok, step_s
+
+
+def _read_pcm(path: str) -> np.ndarray:
+    with wave.open(path, "rb") as w:
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=30)
+    return out.stdout.strip()
+
+
+WS_REQUESTS = 256
+
+
+def phase_ws_bench(work: str, rng) -> bool:
+    """bin/ws_bench against bin/serve.py on localhost: the flagship
+    (a transducer, 12 blocks, random weights) served in bf16 from a model
+    directory, 256 WAVs of 2-15 s as whole-buffer requests, 8 in flight
+    at a time (the server's micro-batching worker decodes them, CTC greedy),
+    scored with ``-t``; its latency lines.  Returns ok."""
+    import contextlib
+    import io
+    import threading
+
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch import api
+    from paper_accurate_fast_cheap_tpu_torch.bin import serve, ws_bench
+
+    d = os.path.join(work, "ws_model")
+    os.makedirs(d)
+    with open(os.path.join(d, "units.txt"), "w") as f:
+        f.write("<blank> 0\n<unk> 1\n")
+        for i in range(2, VOCAB):
+            f.write(f"p{i} {i}\n")
+    with open(os.path.join(d, "train.yaml"), "w") as f:
+        json.dump(dict(CONFIG, tokenizer="whitespace",
+                       tokenizer_conf={"symbol_table_path": "units.txt"}), f)
+    model = build_model(seed=40, label="flagship (ws_bench)")
+    torch.save(model.state_dict(), os.path.join(d, "epoch_0000.pt"))
+    del model
+    scp, trn = [], []
+    for i in range(WS_REQUESTS):
+        pcm = np.clip(rng.randn(int(rng.uniform(2.0, 15.0) * 16000)) * 0.1
+                      * 32768, -32768, 32767).astype(np.int16)
+        path = os.path.join(d, f"req{i:03d}.wav")
+        _write_wav(path, pcm)
+        scp.append(f"req{i:03d} {path}\n")
+        trn.append(f"req{i:03d}\t{' '.join(['p5'] * 4)}\n")
+    for name, lines in (("wav.scp", scp), ("ref.trn", trn)):
+        with open(os.path.join(d, name), "w") as f:
+            f.writelines(lines)
+    m = api.load_model(d, precision="bf16")
+    srv = serve.serve(m, host="127.0.0.1", port=0)
+    port = srv.server_address[1]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    hyp = os.path.join(d, "hyp.trn")
+    buf = io.StringIO()
+    zero_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = ws_bench.main(["-p", str(port), "-w",
+                                os.path.join(d, "wav.scp"), "-s", hyp, "-n",
+                                "8", "-t", os.path.join(d, "ref.trn")])
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    out = buf.getvalue().splitlines()
+    for ln in out:
+        if not ln.startswith("req"):
+            log(f"ws_bench: {ln.strip()}")
+    with open(hyp) as f:
+        texts = [ln.split("\t", 1)[1] for ln in f.read().splitlines()]
+    good = (rc == 0 and any("failed         : 0" in ln for ln in out)
+            and len(texts) == WS_REQUESTS and any(t.strip() for t in texts)
+            and counts["wkv6_fwd"] > 0 and counts["wkv6_fwd"] % 24 == 0)
+    log(f"ws_bench ({WS_REQUESTS} WAVs, 8 concurrent, flagship bf16): "
+        f"{len(texts)} "
+        f"transcripts, counters {json.dumps(counts)} (24 K1 launches per "
+        f"decoded batch) {'ok' if good else 'FAIL'}; card {nvidia_smi()}")
+    return good
 
 
 def main() -> int:
@@ -2874,12 +3298,18 @@ def main() -> int:
         ref_ok, k5_launches = phase_reference(model, hat_model, rng)
         if not ref_ok:
             failed.append("card vs CPU reference")
+        if not phase_search_reference(model, np.random.RandomState(30)):
+            failed.append("search reference (host beam, greedy)")
         hat_model = hat_model.cpu()
         # the attention baselines and direction dropout draw their own data
         att_rng = np.random.RandomState(9)
         if not phase_attention_reference(attention_reference_models(
                 mha_model), att_rng):
             failed.append("attention reference")
+        if not phase_attention_reference(chunk_mask_reference_models(),
+                                         np.random.RandomState(31),
+                                         what="chunk-masked reference"):
+            failed.append("chunk-masked reference")
         if args.batch != 32:
             log(f"main path cut: batch {args.batch} (flagship point: 32 x "
                 f"{WINDOW_S} s)")
@@ -2900,6 +3330,8 @@ def main() -> int:
             failed.append("recognize_wav CLI, LCA on the MHA checkpoint")
         if not phase_beam40(paths, rng):
             failed.append(f"recognize_wav at beam {BEAM_WIDE}")
+        if not phase_cli_sort(paths, card):
+            failed.append("recognize_wav --beam_merge sort")
         tool_ok, k7_launches = phase_tool()
         if not tool_ok:
             failed.append("crash-repro tool cases")
@@ -2925,6 +3357,9 @@ def main() -> int:
         paper_ok, paper_counts = phase_train_paper(work)
         if not paper_ok:
             failed.append("training, the paper's config")
+        tc_ok, _ = phase_train_cli(work, np.random.RandomState(32))
+        if not tc_ok:
+            failed.append("training CLI")
         # the Mamba-2 encoders and streaming
         if not phase_attention_reference(mamba_reference_models(),
                                          np.random.RandomState(13),
@@ -2956,6 +3391,8 @@ def main() -> int:
         if not phase_server(work, np.random.RandomState(16), rwkv_model,
                             rwkv_config):
             failed.append("websocket server")
+        if not phase_ws_bench(work, np.random.RandomState(33)):
+            failed.append("ws_bench")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failed:

@@ -1,18 +1,18 @@
 """Python inference API (port of the JAX ``api.py``): ``load_model(dir)`` and
 ``Model.transcribe(audio) -> {text, ...}`` over a local model directory.
 
-A model directory holds ``train.yaml``, the files its ``tokenizer_conf``
-(and ``cmvn_conf``) name, and the port's ``state_dict`` files
-(``torch.save``; ``tools/convert_checkpoint.py`` makes one from a WeNet
-checkpoint).  The checkpoint is the one given, else the newest ``*.pt`` in
-the directory.  Paths in ``train.yaml`` that do not exist as given are
-looked up in the directory.  The model runs on ``cuda`` unless the caller
-passes ``device="cpu"``.  A hub name or URL is not ported (ROADMAP Queue 1,
-item 15).
+A model directory (a ``bin/train.py`` run directory) holds ``train.yaml``,
+the files its ``tokenizer_conf`` (and ``cmvn_conf``) name, and the port's
+``state_dict`` checkpoints (``train/checkpointing.py``: ``epoch_0003.pt``,
+``snapshot.pt``, ...; ``tools/convert_checkpoint.py`` makes one from a
+WeNet checkpoint).  The checkpoint is the one given, else the last of
+``checkpointing.list_checkpoints`` in name order, as JAX picks.  Paths in
+``train.yaml`` that do not exist as given are looked up in the directory.
+The model runs on ``cuda`` unless the caller passes ``device="cpu"``.  A
+hub name or URL is not ported (ROADMAP Queue 1, item 15).
 """
 from __future__ import annotations
 
-import glob
 import os
 import types
 from typing import Dict, Optional, Union
@@ -42,11 +42,12 @@ def _in_dir(config: dict, model_dir: str) -> dict:
     return out
 
 
-def _newest_checkpoint(model_dir: str) -> str:
-    cks = sorted(glob.glob(os.path.join(model_dir, "*.pt")),
-                 key=os.path.getmtime)
+def _last_checkpoint(model_dir: str) -> str:
+    from paper_accurate_fast_cheap_tpu_torch.train import checkpointing
+
+    cks = checkpointing.list_checkpoints(model_dir)
     if not cks:
-        raise FileNotFoundError(f"no *.pt checkpoint in {model_dir}")
+        raise FileNotFoundError(f"no checkpoints in {model_dir}")
     return cks[-1]
 
 
@@ -71,8 +72,8 @@ class Model:
     @classmethod
     def from_dir(cls, model_dir: str, checkpoint: Optional[str] = None,
                  precision: str = "fp32", device=None):
-        """Load from a local model directory (``train.yaml`` and the newest
-        ``*.pt`` unless ``checkpoint`` names one)."""
+        """Load from a local model directory (``train.yaml`` and its last
+        checkpoint unless ``checkpoint`` names one)."""
         from paper_accurate_fast_cheap_tpu_torch.bin.recognize import (
             build_decode_assets)
         from paper_accurate_fast_cheap_tpu_torch.utils.config import (
@@ -85,7 +86,7 @@ class Model:
         dev = resolve_device(device)
         config = _in_dir(load_config(os.path.join(model_dir, "train.yaml")),
                          model_dir)
-        checkpoint = checkpoint or _newest_checkpoint(model_dir)
+        checkpoint = checkpoint or _last_checkpoint(model_dir)
         tokenizer, model, model_type, featurize, _ = build_decode_assets(
             config, checkpoint, device=dev)
         return cls(config, tokenizer, model, model_type, featurize,

@@ -4,19 +4,26 @@ Port of the JAX ``bin/recognize_wav.py`` (unfused path): the waveform is
 cut into ``--chunk_size``-frame windows in the sample domain,
 ``--batch_size`` windows at a time (the tail batch padded to full rows),
 and each batch runs fbank + CMVN -> encoder -> CTC -> search on the
-device; CTM word times come from a batched CTC Viterbi alignment of each
-window's best hypothesis on the device.  Batch i+1 is dispatched before
-batch i is finalized, so the host's TXT/CTM work overlaps the device.
+device; CTM word times come from a CTC Viterbi alignment of each
+window's best hypothesis on the device.  On the ``rnnt_beam_search`` path
+the beam aligns its top hypothesis's first ``--align_max_tokens`` tokens
+(default ``max(64, chunk_size // 16)``) itself and packs beam, path, ok
+flags and lengths into one buffer, which reaches the host in one copy
+(JAX's fused form); a row whose hypothesis is longer (ok false) goes
+through the batched aligner, as the other modes do.  Batch i+1 is
+dispatched before batch i is finalized, so the host's TXT/CTM work
+overlaps the device.
 
 Same flags and defaults as the JAX CLI, plus ``--device`` (``cuda`` unless
-``cpu`` is asked for).  ``--fuse``, ``--beam_unroll``,
-``--align_max_tokens``, ``--wkv_impl`` and ``--rwkv_r`` choose how the JAX
-package dispatches to its TPU; they are accepted and do nothing here.
+``cpu`` is asked for).  ``--fuse``, ``--beam_unroll``, ``--wkv_impl`` and
+``--rwkv_r`` choose how the JAX package dispatches to its TPU; they are
+accepted, logged and do nothing here.  ``--beam_merge`` picks the device
+beam's duplicate merge (``pairwise`` or ``sort``).
 ``--encoder_context_size`` N > 0 switches the encoder's self-attention to
 LCA with context (N, N) and ``--encoder_global_tokens`` global tokens, as
 the JAX CLI does; a rel-pos MHA checkpoint loads into it (the same
-parameters).  ``--beam_merge sort``, ``--seq_parallel`` > 1 and
-``--verbatimicity`` need modules not ported yet and raise.
+parameters).  ``--seq_parallel`` > 1 and ``--verbatimicity`` need modules
+not ported yet and raise.
 
 Usage:
   python -m paper_accurate_fast_cheap_tpu_torch.bin.recognize_wav \\
@@ -34,8 +41,8 @@ import time
 import numpy as np
 import torch
 
-_IGNORED = {"fuse": "auto", "beam_unroll": 1, "align_max_tokens": 0,
-            "wkv_impl": None, "rwkv_r": 0}
+_IGNORED = {"fuse": "auto", "beam_unroll": 1, "wkv_impl": None,
+            "rwkv_r": 0}
 
 
 def get_args(argv=None):
@@ -74,9 +81,10 @@ def get_args(argv=None):
                    help="accepted, does nothing")
     p.add_argument("--beam_merge", default="pairwise",
                    choices=["sort", "pairwise"],
-                   help="device-beam duplicate merge (pairwise only)")
+                   help="device-beam duplicate merge")
     p.add_argument("--align_max_tokens", type=int, default=0,
-                   help="accepted, does nothing")
+                   help="tokens of the top hypothesis the beam aligns "
+                        "itself (0: max(64, chunk_size // 16))")
     p.add_argument("--seq_parallel", type=int, default=0,
                    help="sequence-parallel encoder: not ported")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -121,9 +129,6 @@ def make_window_slicer(wav: np.ndarray, win_samples: int, device):
 
 def _check_flags(args) -> None:
     unported = []
-    if args.beam_merge == "sort":
-        unported.append("--beam_merge sort (ROADMAP Queue 1, item 16: the "
-                        "sort merge)")
     if args.seq_parallel > 1:
         unported.append("--seq_parallel (ROADMAP Queue 1, item 14)")
     if args.verbatimicity is not None:
@@ -185,6 +190,7 @@ def main(argv=None):
         raise ValueError("rnnt_beam_search needs a transducer model")
     if beam:
         step_fns = rnnt_search.make_transducer_step_fns(model)
+        align_lmax = args.align_max_tokens or max(64, args.chunk_size // 16)
 
     ctm_lines = []
     all_text = []
@@ -205,32 +211,43 @@ def main(argv=None):
             payload = rnnt_search.rnnt_beam_search(
                 *step_fns, enc, enc_lens, logp, beam_size=args.beam_size,
                 ctc_weight=args.ctc_weight,
-                transducer_weight=args.transducer_weight, defer=True)
+                transducer_weight=args.transducer_weight, defer=True,
+                merge=args.beam_merge, align_pack=align_lmax)
         return enc_lens, logp, payload
 
     def finalize(entry):
         """Materialize one dispatched batch: search results, alignment,
         TXT and CTM lines."""
         group, slens, enc_lens, logp, payload = entry
-        lens_np = enc_lens.cpu().numpy()
         if beam:
-            res = rnnt_search.finalize_device_beam(payload)
-        elif args.mode == "ctc_greedy_search":
-            res = search.ctc_greedy_search(logp, lens_np)
+            # beam + Viterbi path + ok + lengths in one copy
+            res, path_np, ok_np, lens_np = \
+                rnnt_search.finalize_device_beam_aligned(
+                    payload, beam=args.beam_size)
         else:
-            res = search.ctc_prefix_beam_search(logp, lens_np,
-                                                beam_size=args.beam_size)
+            lens_np = enc_lens.cpu().numpy()
+            if args.mode == "ctc_greedy_search":
+                res = search.ctc_greedy_search(logp, lens_np)
+            else:
+                res = search.ctc_prefix_beam_search(
+                    logp, lens_np, beam_size=args.beam_size)
         # token timing: one batched Viterbi on the device per window batch
         need_align = [b for b, r in enumerate(res)
                       if r.tokens and not (r.times
                                            and len(r.times)
                                            == len(r.tokens))]
         alis = {}
+        if need_align and beam:
+            # the beam aligned its rows' top hypotheses already
+            for b in need_align:
+                if ok_np[b]:
+                    alis[b] = [int(x) for x in path_np[b, : lens_np[b]]]
+            need_align = [b for b in need_align if not ok_np[b]]
         if need_align:
             batch_ali = ctc_utils.force_align_batch_device(
                 logp, lens_np, [res[b].tokens if b in need_align else []
                                 for b in range(len(res))])
-            alis = {b: batch_ali[b] for b in need_align}
+            alis.update({b: batch_ali[b] for b in need_align})
         for start_frame, r, b in zip(group, res, range(len(res))):
             if not r.tokens:
                 continue

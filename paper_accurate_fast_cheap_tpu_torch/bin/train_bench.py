@@ -118,7 +118,8 @@ def prepare(args) -> Bench:
 
     def loss_fn(p, mb, seed):
         torch.manual_seed(seed)  # the step's dropout masks
-        out = torch.func.functional_call(model, p, mb)
+        ts.bind_params(model, p)
+        out = model(*mb)
         return out["loss"], {k: out[k].detach()
                              for k in ("loss_att", "th_accuracy")}
 

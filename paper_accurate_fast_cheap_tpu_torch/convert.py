@@ -20,10 +20,15 @@ the RWKV mixing parameters (``time_*``) and the Mamba-2 block's
 ``dt_bias``, ``A_log`` and ``D`` (H,) keep their layout.  A leaf of
 any other name (a module the port does not have) raises KeyError.  WeNet
 checkpoints load through ``tools/convert_checkpoint.py``.
+
+``opt_state_from_jax`` carries the optax chain state of the JAX trainer
+(``scale_by_adam``'s count and moments, the schedule's count) into the
+port's ``TrainState.opt_state``, so a run resumed on each side from one
+JAX checkpoint takes the same steps.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -77,3 +82,49 @@ def as_limited_context(state: Mapping[str, torch.Tensor]
     (``LimitedRelPositionAttention`` has the rel-pos MHA's parameters), so
     an MHA checkpoint decodes with limited context."""
     return {k.replace(_MHA, _LCA, 1): v for k, v in state.items()}
+
+
+def _optax_leaves(state) -> Iterable[Any]:
+    """The named-tuple states inside an optax chain state (nested tuples)."""
+    if hasattr(state, "_fields"):
+        yield state
+        for v in state:
+            if isinstance(v, tuple):
+                yield from _optax_leaves(v)
+    elif isinstance(state, (tuple, list)):
+        for v in state:
+            yield from _optax_leaves(v)
+
+
+def opt_state_from_jax(opt_state, names: Iterable[str]) -> Dict[str, Any]:
+    """The JAX trainer's optax state -> the port's optimizer state
+    ``{"count", "mu", "nu"}`` over the parameter ``names`` (the port's
+    ``named_parameters``).  The moments follow their parameters' layout
+    (``state_dict_from_jax``).  The port reads its schedule at the Adam
+    count, so a schedule count that differs from it raises ValueError (the
+    train step's skip rule freezes both together)."""
+    adam = [s for s in _optax_leaves(opt_state)
+            if {"count", "mu", "nu"} <= set(s._fields)]
+    if len(adam) != 1:
+        raise ValueError("expected one scale_by_adam state in the chain, "
+                         f"found {len(adam)}")
+    adam = adam[0]
+    count = int(np.asarray(adam.count))
+    for s in _optax_leaves(opt_state):
+        if s is not adam and "count" in s._fields:
+            if int(np.asarray(s.count)) != count:
+                raise ValueError(
+                    f"schedule count {int(np.asarray(s.count))} != adam "
+                    f"count {count}")
+
+    def moments(tree):
+        sd = state_dict_from_jax(_as_numpy(tree))
+        return {n: sd[n] for n in names}
+
+    return {"count": count, "mu": moments(adam.mu), "nu": moments(adam.nu)}
+
+
+def _as_numpy(tree):
+    if isinstance(tree, Mapping):
+        return {k: _as_numpy(v) for k, v in tree.items()}
+    return np.asarray(tree)

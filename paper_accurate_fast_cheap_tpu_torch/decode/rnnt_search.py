@@ -1,6 +1,9 @@
-"""Transducer prefix beam search with CTC shallow fusion, on the device
-(port of ``_rnnt_beam_search_device`` in the JAX ``decode/rnnt_search.py``,
-pairwise merge).
+"""Transducer searches (port of the JAX ``decode/rnnt_search.py``): the
+frame-synchronous greedy search (``basic_greedy_search``, up to ``n_steps``
+emissions a frame) and the prefix beam search with CTC shallow fusion, on
+the device (``impl="device"``, the pairwise or the sort merge, optionally
+with the top hypothesis's CTC Viterbi path packed beside the beam) or as
+the host-loop parity oracle (``impl="host"``).
 
 Per frame, per beam: predictor state after the beam's last token, the
 joint with enc[t], fusion ``log(tw * exp(trans) + cw * exp(ctc[t]))``, the
@@ -25,9 +28,17 @@ top-k routes (``topk_impl``):
 ``pallas``, on the card and on the CPU alike.  The initial blank step is
 taken before the loop.
 
-Ties never go through ``torch.topk``/``sort``: the vocab selection follows
+Ties never go through ``torch.topk``: the vocab selection follows
 ``ops/topk.top_k_vocab_plain`` and the final prune ``ops/topk.stable_top_k``
-(``jax.lax.top_k`` order).
+(``jax.lax.top_k`` order); the sort merge walks a stable sort of the
+candidate scores, as JAX's does.
+
+The host oracle walks the candidates in numpy exactly as JAX's does: the
+fused row reaches numpy in float32 (``np.argsort(-lp)`` is an unstable
+sort, so the dtype decides how ties order), the scores are float64, and
+duplicates log-add into the earlier occurrence.  Its predictor reorder and
+step run on the device (K3 on the card).  The greedy searches pick the
+first maximum (``torch.argmax``), as ``jnp.argmax`` does.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from paper_accurate_fast_cheap_tpu_torch.decode.search import DecodeResult
+from paper_accurate_fast_cheap_tpu_torch.ops import ctc_utils
 from paper_accurate_fast_cheap_tpu_torch.ops.fused_topk import (
     fused_top_k_vocab)
 from paper_accurate_fast_cheap_tpu_torch.ops.joint_topk import (
@@ -81,25 +93,107 @@ def make_transducer_step_fns(model):
     return predictor_step, joint_step, model.predictor_init_state
 
 
+def _select_rows(mask: torch.Tensor, new: torch.Tensor,
+                 old: torch.Tensor) -> torch.Tensor:
+    """Per-row select on a predictor-state leaf: (L, n, ...) for ndim >= 3,
+    (n, D) for ndim 2, (n,) for ndim 1."""
+    if new.ndim >= 3:
+        m = mask.reshape((1, -1) + (1,) * (new.ndim - 2))
+    elif new.ndim == 2:
+        m = mask[:, None]
+    else:
+        m = mask
+    return torch.where(m, new, old)
+
+
+def _select_state(mask, new, old):
+    return tuple(_select_rows(mask, n, o) for n, o in zip(new, old))
+
+
+def _gather_state(state, sel: torch.Tensor):
+    """Gather predictor-state rows by flat index (the same convention)."""
+    return tuple(s[:, sel] if s.ndim >= 3 else s[sel] for s in state)
+
+
+def basic_greedy_search(predictor_step: Callable, joint_step: Callable,
+                        init_state, enc_out: torch.Tensor,
+                        enc_lens: torch.Tensor, blank_id: int = 0,
+                        n_steps: int = 1) -> List[DecodeResult]:
+    """Frame-synchronous greedy search, up to ``n_steps`` symbols a frame
+    (a frame's emitting stops at its first blank; with ``n_steps`` 1 this
+    is JAX's one-step form, with more its ``_greedy_multi``).
+
+    ``init_state`` is the predictor state for B rows.  As in JAX, the
+    predictor output of a leading blank starts the loop while the state
+    carried into it is ``init_state`` itself (the blank step's state is
+    not kept, in both forms)."""
+    B, T, _ = enc_out.shape
+    dev = enc_out.device
+    with torch.no_grad():
+        tokens = torch.full((B,), blank_id, dtype=torch.int32, device=dev)
+        pred_out, _ = predictor_step(tokens, init_state)
+        state = tuple(init_state)
+        frames = []
+        for t in range(T):
+            enc_t = enc_out[:, t]
+            active = torch.ones(B, dtype=torch.bool, device=dev)
+            out = []
+            for _ in range(n_steps):
+                logp = joint_step(enc_t, pred_out)
+                best = torch.argmax(logp, dim=-1).to(torch.int32)
+                emitted = (best != blank_id) & active
+                active = emitted
+                out.append(torch.where(emitted, best, blank_id))
+                tokens = torch.where(emitted, best, tokens)
+                cand_out, cand_state = predictor_step(tokens, state)
+                pred_out = torch.where(emitted[:, None], cand_out, pred_out)
+                state = _select_state(emitted, cand_state, state)
+            frames.append(torch.stack(out, dim=-1))
+        emits = (torch.stack(frames, dim=1).cpu().numpy() if frames
+                 else np.zeros((B, 0, n_steps), np.int32))
+    lens = enc_lens.cpu().numpy()
+    results = []
+    for b in range(B):
+        toks = []
+        for t in range(lens[b]):
+            for x in emits[b, t]:
+                if x == blank_id:
+                    break
+                toks.append(int(x))
+        results.append(DecodeResult(tokens=toks))
+    return results
+
+
 def rnnt_beam_search(predictor_step: Callable, joint_step: Callable,
                      init_state_fn: Callable, enc_out: torch.Tensor,
                      enc_lens: torch.Tensor, ctc_probs: torch.Tensor,
                      beam_size: int = 8, blank_id: int = 0,
                      ctc_weight: float = 0.3, transducer_weight: float = 0.7,
                      impl: str = "device", defer: bool = False,
-                     topk_impl: str = "auto"):
+                     merge: str = "pairwise", topk_impl: str = "auto",
+                     align_pack: int = 0):
     """Batched prefix beam search with CTC shallow fusion.
 
     enc_out (B, T, De), enc_lens (B,), ctc_probs (B, T, V) log-probs.
-    ``topk_impl`` is ``auto``, ``pallas_joint``, ``pallas`` or ``xla``
-    (module docstring); ``pallas_joint`` without the split form takes
-    ``pallas``, as in JAX.  Returns a list of DecodeResult, or with
+    ``impl="device"``: the beam on the device, ``merge`` ``pairwise`` or
+    ``sort``, ``topk_impl`` ``auto``, ``pallas_joint``, ``pallas`` or
+    ``xla`` (module docstring; ``pallas_joint`` without the split form
+    takes ``pallas``, as in JAX).  Returns a list of DecodeResult, or with
     ``defer=True`` the final carry (for ``pack_device_beam`` /
-    ``finalize_device_beam``).  Only ``impl="device"`` (with the pairwise
-    merge) is ported.
+    ``finalize_device_beam``).  ``align_pack=Lmax`` runs the CTC Viterbi
+    of each row's top hypothesis (its first Lmax tokens) after the beam
+    and returns, deferred, one int32 buffer of beam, path, ok and lengths
+    (``finalize_device_beam_aligned``).  ``impl="host"``: the host-loop
+    oracle (its own module docstring paragraph).
     """
+    if impl == "host":
+        return _rnnt_beam_search_host(
+            predictor_step, joint_step, init_state_fn, enc_out, enc_lens,
+            ctc_probs, beam_size, blank_id, ctc_weight, transducer_weight)
     if impl != "device":
-        raise NotImplementedError("the port has the device beam only")
+        raise ValueError(f"unknown impl {impl!r}")
+    if merge not in ("pairwise", "sort"):
+        raise ValueError(f"unknown merge {merge!r}")
     if topk_impl not in ("auto", "pallas_joint", "pallas", "xla"):
         raise ValueError(f"unknown topk_impl {topk_impl!r}")
     if topk_impl in ("auto", "pallas_joint"):
@@ -109,14 +203,23 @@ def rnnt_beam_search(predictor_step: Callable, joint_step: Callable,
         out = _rnnt_beam_search_device(
             predictor_step, joint_step, init_state_fn, enc_out, enc_lens,
             ctc_probs, beam_size, blank_id, ctc_weight, transducer_weight,
-            topk_impl)
-    return out if defer else finalize_device_beam(out)
+            topk_impl, merge)
+        if align_pack > 0:
+            path, ok = ctc_utils.force_align_device_tokens(
+                ctc_probs, enc_lens, out["hyps"][:, 0, :align_pack],
+                out["hyp_len"][:, 0], blank_id=blank_id)
+            out = pack_device_beam_aligned(out, path, ok, enc_lens)
+    if defer:
+        return out
+    if align_pack > 0:
+        return finalize_device_beam_aligned(out, beam=beam_size)[0]
+    return finalize_device_beam(out)
 
 
 def _rnnt_beam_search_device(predictor_step, joint_step, init_state_fn,
                              enc_out, enc_lens, ctc_probs, beam_size,
                              blank_id, ctc_weight, transducer_weight,
-                             topk_impl):
+                             topk_impl, merge="pairwise"):
     dev = enc_out.device
     B, T, _ = enc_out.shape
     N = beam_size
@@ -155,6 +258,7 @@ def _rnnt_beam_search_device(predictor_step, joint_step, init_state_fn,
 
     jidx = torch.arange(NK, device=dev)
     j_lt_i = (jidx[:, None] < jidx[None, :])[None]
+    j_le_i = (jidx[None, :] <= jidx[:, None])[None]
     row0 = (torch.arange(B, device=dev) * N)[:, None]
 
     for t in range(T):
@@ -185,24 +289,50 @@ def _rnnt_beam_search_device(predictor_step, joint_step, init_state_fn,
                            src_h2)
         c_len = hyp_len.repeat_interleave(N, dim=1) + c_adv.to(torch.int32)
 
-        # sort-free walk: candidate j precedes i iff its score is higher, or
-        # equal with a lower index (stable argsort of -score)
-        eq = ((c_h1[:, :, None] == c_h1[:, None, :])
-              & (c_h2[:, :, None] == c_h2[:, None, :])
-              & (c_len[:, :, None] == c_len[:, None, :]))
-        sc_j, sc_i = c_score[:, :, None], c_score[:, None, :]
-        before = (sc_j > sc_i) | ((sc_j == sc_i) & j_lt_i)
-        is_first = ~torch.any(eq & before, dim=1)
-        firsts_before = torch.sum(is_first[:, :, None] & before, dim=1)
-        # the walk stops once N distinct prefixes exist
-        in_win = firsts_before < N
-        contrib = torch.where(eq & in_win[:, None, :], c_score[:, None, :],
-                              neg)
-        merged = torch.logsumexp(contrib, dim=-1)
-        final = torch.where(is_first & in_win, merged, neg)
-        top_scores, top_pos = stable_top_k(final, N)     # (B, N)
+        if merge == "pairwise":
+            # sort-free walk: candidate j precedes i iff its score is
+            # higher, or equal with a lower index (stable argsort of -score)
+            eq = ((c_h1[:, :, None] == c_h1[:, None, :])
+                  & (c_h2[:, :, None] == c_h2[:, None, :])
+                  & (c_len[:, :, None] == c_len[:, None, :]))
+            sc_j, sc_i = c_score[:, :, None], c_score[:, None, :]
+            before = (sc_j > sc_i) | ((sc_j == sc_i) & j_lt_i)
+            is_first = ~torch.any(eq & before, dim=1)
+            firsts_before = torch.sum(is_first[:, :, None] & before, dim=1)
+            # the walk stops once N distinct prefixes exist
+            in_win = firsts_before < N
+            contrib = torch.where(eq & in_win[:, None, :],
+                                  c_score[:, None, :], neg)
+            merged = torch.logsumexp(contrib, dim=-1)
+            final = torch.where(is_first & in_win, merged, neg)
+            top_scores, top_pos = stable_top_k(final, N)     # (B, N)
+        else:
+            # walk the candidates in a stable descending sort of the score
+            order = torch.sort(-c_score, dim=-1, stable=True).indices
+            s_score = torch.gather(c_score, 1, order)
+            s_h1 = torch.gather(c_h1, 1, order)
+            s_h2 = torch.gather(c_h2, 1, order)
+            s_len = torch.gather(c_len, 1, order)
+            eq = ((s_h1[:, :, None] == s_h1[:, None, :])
+                  & (s_h2[:, :, None] == s_h2[:, None, :])
+                  & (s_len[:, :, None] == s_len[:, None, :]))
+            # the first equal position at or before each position
+            first_idx = torch.argmax((eq & j_le_i).to(torch.int8), dim=-1)
+            is_first = first_idx == jidx[None, :]
+            urank = torch.cumsum(is_first.to(torch.int32), dim=-1)
+            reached = urank >= N
+            p_pos = torch.where(torch.any(reached, dim=-1),
+                                torch.argmax(reached.to(torch.int8), dim=-1),
+                                NK - 1)
+            in_win = jidx[None, :] <= p_pos[:, None]
+            contrib = torch.where(eq & in_win[:, None, :],
+                                  s_score[:, None, :], neg)
+            merged = torch.logsumexp(contrib, dim=-1)
+            final = torch.where(is_first & in_win, merged, neg)
+            top_scores, top_pos = stable_top_k(final, N)     # (B, N)
+            # the winners' positions among the unsorted candidates
+            top_pos = torch.gather(order, 1, top_pos)
         ok = top_scores > neg
-
         n_src = top_pos // N
         n_tok = torch.gather(c_tok, 1, top_pos)
         n_h1 = torch.gather(c_h1, 1, top_pos)
@@ -287,6 +417,148 @@ def finalize_device_beam(out, beam: int = 0) -> List[DecodeResult]:
             if not np.isfinite(scores[b, j]):
                 continue
             nbest.append([int(x) for x in hyps[b, j, : hyp_len[b, j]]])
+            nscores.append(float(scores[b, j]))
+        results.append(DecodeResult(
+            tokens=nbest[0] if nbest else [],
+            score=nscores[0] if nscores else 0.0,
+            nbest=nbest, nbest_scores=nscores))
+    return results
+
+
+def pack_device_beam_aligned(out, path: torch.Tensor, ok: torch.Tensor,
+                             lens) -> torch.Tensor:
+    """``pack_device_beam`` + the top hypothesis's Viterbi path + its ok
+    flag + the encoder lengths in ONE int32 tensor, so one copy brings the
+    beam, its alignment and the lengths to the host.
+
+    Row layout: [hyps N*L | hyp_len N | scores N (f32 bits) | path L | ok 1
+    | len 1], L the frame count T.  Recover with
+    ``finalize_device_beam_aligned(buf, beam=N)``."""
+    B, N, L = out["hyps"].shape
+    if tuple(path.shape) != (B, L):
+        raise ValueError(f"path shape {tuple(path.shape)} != {(B, L)}")
+    dev = out["hyps"].device
+    return torch.cat([
+        pack_device_beam(out),
+        path.to(torch.int32),
+        ok.to(torch.int32)[:, None],
+        torch.as_tensor(lens, device=dev).to(torch.int32)[:, None],
+    ], dim=1)
+
+
+def finalize_device_beam_aligned(buf, beam: int):
+    """Materialise a ``pack_device_beam_aligned`` buffer in one copy.
+    Returns (results, path (B, T) int32, ok (B,) bool, lens (B,)) as
+    numpy."""
+    arr = buf.cpu().numpy() if isinstance(buf, torch.Tensor) \
+        else np.asarray(buf)
+    B, W = arr.shape
+    N = beam
+    L = (W - 2 * N - 2) // (N + 1)
+    if N * L + 2 * N + L + 2 != W:
+        raise ValueError(f"buffer width {W} does not fit beam {N}")
+    beam_w = N * L + 2 * N
+    results = finalize_device_beam(torch.from_numpy(arr[:, :beam_w]),
+                                   beam=N)
+    path = arr[:, beam_w: beam_w + L]
+    ok = arr[:, beam_w + L].astype(bool)
+    lens = arr[:, beam_w + L + 1]
+    return results, path, ok, lens
+
+
+def _rnnt_beam_search_host(predictor_step, joint_step, init_state_fn,
+                           enc_out, enc_lens, ctc_probs, beam_size=8,
+                           blank_id=0, ctc_weight=0.3,
+                           transducer_weight=0.7) -> List[DecodeResult]:
+    """Host-loop prefix beam search, the parity oracle of the device beam:
+    per utterance and frame, walk every beam's top-N expansions in
+    descending score, log-add duplicate prefixes into the earlier
+    occurrence, stop at N distinct prefixes."""
+    B, T, _ = enc_out.shape
+    N = beam_size
+    dev = enc_out.device
+    lens = enc_lens.cpu().numpy()
+    f32 = dict(dtype=torch.float32, device=dev)
+    # jnp.log of the weights, in float32
+    log_tw = torch.log(torch.tensor(transducer_weight, **f32))
+    log_cw = torch.log(torch.tensor(ctc_weight, **f32))
+
+    def reorder_and_step(state, pred_out, sel, new_tokens, advance):
+        state_g = _gather_state(state, sel)
+        pred_g = pred_out[sel]
+        cand_out, cand_state = predictor_step(new_tokens, state_g)
+        return (torch.where(advance[:, None], cand_out, pred_g),
+                _select_state(advance, cand_state, state_g))
+
+    with torch.no_grad():
+        state = init_state_fn(B * N)
+        pred_out, state = predictor_step(
+            torch.full((B * N,), blank_id, dtype=torch.int32, device=dev),
+            state)
+        hyps = [[(blank_id,)] + [None] * (N - 1) for _ in range(B)]
+        scores = np.full((B, N), -np.inf)
+        scores[:, 0] = 0.0
+        for t in range(int(lens.max()) if B else 0):
+            enc_t = enc_out[:, t].repeat_interleave(N, dim=0)
+            logp = joint_step(enc_t, pred_out)
+            fused = torch.logaddexp(
+                log_tw + logp,
+                log_cw + ctc_probs[:, t].repeat_interleave(N, dim=0))
+            fused = fused.float().cpu().numpy()        # float32 rows
+            sel = np.zeros((B * N,), np.int64)
+            new_tok = np.zeros((B * N,), np.int32)
+            advance = np.zeros((B * N,), bool)
+            for b in range(B):
+                if t >= lens[b]:
+                    sel[b * N: (b + 1) * N] = b * N + np.arange(N)
+                    continue
+                cands = []  # (score, src, adv, tok, hyp)
+                for j in range(N):
+                    if hyps[b][j] is None:
+                        continue
+                    base = scores[b, j]
+                    lp = fused[b * N + j]
+                    for u in np.argsort(-lp)[:N]:
+                        s = base + lp[u]
+                        if u == blank_id:
+                            cands.append((s, j, False, int(u), hyps[b][j]))
+                        else:
+                            cands.append((s, j, True, int(u),
+                                          hyps[b][j] + (int(u),)))
+                cands.sort(key=lambda c: -c[0])
+                best, seen = [], {}
+                for s, src, adv, u, hyp in cands:
+                    if hyp in seen:
+                        e = best[seen[hyp]]
+                        e[1] = np.logaddexp(e[1], s)
+                    else:
+                        seen[hyp] = len(best)
+                        best.append([hyp, s, src, adv, u])
+                        if len(best) >= N:
+                            break
+                best.sort(key=lambda e: -e[1])
+                new_hyps = [None] * N
+                for j, (hyp, s, src, adv, u) in enumerate(best):
+                    new_hyps[j] = hyp
+                    scores[b, j] = s
+                    sel[b * N + j] = b * N + src
+                    new_tok[b * N + j] = u if adv else hyp[-1]
+                    advance[b * N + j] = adv
+                for j in range(len(best), N):
+                    scores[b, j] = -np.inf
+                    sel[b * N + j] = b * N
+                hyps[b] = new_hyps
+            pred_out, state = reorder_and_step(
+                state, pred_out, torch.from_numpy(sel).to(dev),
+                torch.from_numpy(new_tok).to(dev),
+                torch.from_numpy(advance).to(dev))
+    results = []
+    for b in range(B):
+        nbest, nscores = [], []
+        for j in np.argsort(-scores[b]):
+            if hyps[b][j] is None:
+                continue
+            nbest.append(list(hyps[b][j][1:]))  # strip the leading blank
             nscores.append(float(scores[b, j]))
         results.append(DecodeResult(
             tokens=nbest[0] if nbest else [],

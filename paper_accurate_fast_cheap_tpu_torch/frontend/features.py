@@ -2,7 +2,8 @@
 ``frontend/features.py``: snip_edges framing, DC removal, preemphasis 0.97,
 povey window, power spectrum over a 512-point FFT, Kaldi mel banks from
 20 Hz to nyquist, natural log with a float-epsilon floor).  Written with
-``torch.fft.rfft``; dither waits for the training slice."""
+``torch.fft.rfft``.  ``dither`` adds ``dither * N(0, 1)`` noise to each
+frame before the DC removal, from the caller's ``torch.Generator``."""
 from __future__ import annotations
 
 import math
@@ -60,7 +61,8 @@ def fbank_batch(waveforms: torch.Tensor, lengths: torch.Tensor,
                 num_mel_bins: int = 80, frame_length: int = 400,
                 frame_shift: int = 160, sample_rate: int = 16000,
                 preemphasis: float = 0.97, round_to_power_of_two: bool = True,
-                use_power: bool = True, remove_dc_offset: bool = True):
+                use_power: bool = True, remove_dc_offset: bool = True,
+                dither: float = 0.0, generator=None):
     """Batched Kaldi fbank over padded int16-scaled waveforms (B, S) ->
     ((B, F, bins) f32, frame_lens (B,) int32).  Padded samples only reach
     the trailing frames, which callers mask with ``frame_lens``."""
@@ -71,6 +73,11 @@ def fbank_batch(waveforms: torch.Tensor, lengths: torch.Tensor,
         fft_size = 1 << (frame_length - 1).bit_length()
     dev = waveforms.device
     frames = waveforms.float().unfold(1, frame_length, frame_shift)[:, :nf]
+    if dither != 0.0:
+        if generator is None:
+            raise ValueError("dither > 0 needs a generator")
+        frames = frames + dither * torch.randn(
+            frames.shape, generator=generator, device=dev)
     if remove_dc_offset:
         frames = frames - frames.mean(dim=-1, keepdim=True)
     if preemphasis != 0.0:

@@ -13,6 +13,17 @@ controls ``bidirectional_layers`` and ``alt_decoding`` come from
 ``d_model // heads``, d_state 128, chunk 64, its direction from
 ``rnn_att_direction``).
 
+The full forward masks attention as JAX does: the padding mask, combined
+with a chunk mask (``utils/masks.add_optional_chunk_mask``) in training with
+``use_dynamic_chunk`` (one ``(chunk, nleft)`` drawn per batch from
+``chunk_generator``), and when
+``static_chunk_size > 0`` or ``decoding_chunk_size != 0``.  The recurrent
+attentions never read the mask; MHA, its rel-pos variants and LCA do.
+``gradient_checkpointing`` recomputes each block in the training backward
+(``torch.utils.checkpoint``, JAX's ``nn.remat``); the recomputation reads
+the block's parameters from the module, so a functional train step binds
+them there (``train/train_step.bind_params``).
+
 Streaming (``return_state``): the chunk is fully valid, so no mask is made;
 each layer carries ``{"attn", "conv"}``: the uni RWKV's (x_prev, WKV state),
 the uni Mamba's {"conv", "ssd"} or the MHA's fixed-size KV cache (the last
@@ -26,10 +37,12 @@ layer i is called with attention module i.
 """
 from __future__ import annotations
 
+import logging
 from typing import Any, Optional
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from paper_accurate_fast_cheap_tpu_torch.models.attention import (
     ESPnetRelPositionMultiHeadedAttention, MultiHeadedAttention,
@@ -46,7 +59,8 @@ from paper_accurate_fast_cheap_tpu_torch.models.mamba import MambaAttention
 from paper_accurate_fast_cheap_tpu_torch.models.rwkv import RWKVAttention
 from paper_accurate_fast_cheap_tpu_torch.models.subsampling import (
     Conv2dSubsampling4)
-from paper_accurate_fast_cheap_tpu_torch.utils.masks import make_pad_mask
+from paper_accurate_fast_cheap_tpu_torch.utils.masks import (
+    add_optional_chunk_mask, make_pad_mask)
 
 EMB_CLASSES = {
     "abs_pos": PositionalEncoding,
@@ -178,8 +192,15 @@ class ConformerEncoder(nn.Module):
                  activation_type: str = "swish", causal: bool = False,
                  key_bias: bool = True,
                  selfattention_layer_type: str = "rel_selfattn",
+                 static_chunk_size: int = 0, use_dynamic_chunk: bool = False,
+                 use_dynamic_left_chunk: bool = False,
+                 gradient_checkpointing: bool = False,
                  rwkv_conf: Optional[dict] = None, **unused: Any):
         super().__init__()
+        if unused:
+            logging.getLogger(__name__).warning(
+                "conformer encoder: keys of other encoder families ignored: "
+                "%s", sorted(unused))
         if (input_layer != "conv2d" or pos_enc_layer_type not in EMB_CLASSES
                 or not (normalize_before and macaron_style
                         and use_cnn_module)):
@@ -191,6 +212,13 @@ class ConformerEncoder(nn.Module):
         self.num_blocks = num_blocks
         self.attention_type = selfattention_layer_type
         self.heads, self.output_size = attention_heads, output_size
+        self.static_chunk_size = static_chunk_size
+        self.use_dynamic_chunk = use_dynamic_chunk
+        self.use_dynamic_left_chunk = use_dynamic_left_chunk
+        self.gradient_checkpointing = gradient_checkpointing
+        # the host generator of the training forward's dynamic chunk draw
+        # (seeded 0 at first use unless the trainer sets it)
+        self.chunk_generator: Optional[torch.Generator] = None
         self.embed = Conv2dSubsampling4(input_size, output_size)
         self.pos_enc = EMB_CLASSES[pos_enc_layer_type](
             output_size, positional_dropout_rate)
@@ -207,7 +235,9 @@ class ConformerEncoder(nn.Module):
                 cnn_module_norm, activation_type, causal))
         self.after_norm = nn.LayerNorm(output_size, eps=1e-5)
 
-    def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor, *,
+    def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor,
+                decoding_chunk_size: int = 0,
+                num_decoding_left_chunks: int = -1, *,
                 streaming_state: Optional[dict] = None,
                 return_state: bool = False, offset: int = 0,
                 att_cache_size: int = 0):
@@ -221,12 +251,30 @@ class ConformerEncoder(nn.Module):
         if return_state:
             return self._chunk(xs, out_lens, pos_emb, streaming_state,
                                offset, att_cache_size)
-        pad_mask = make_pad_mask(out_lens, xs.shape[1])
-        att_mask = pad_mask[:, None, :]
+        T = xs.shape[1]
+        pad_mask = make_pad_mask(out_lens, T)
+        if self.use_dynamic_chunk and self.training:
+            if self.chunk_generator is None:
+                self.chunk_generator = torch.Generator().manual_seed(0)
+            att_mask = add_optional_chunk_mask(
+                pad_mask, True, self.use_dynamic_left_chunk,
+                decoding_chunk_size, self.static_chunk_size,
+                num_decoding_left_chunks, generator=self.chunk_generator)
+        elif self.static_chunk_size > 0 or decoding_chunk_size != 0:
+            att_mask = add_optional_chunk_mask(
+                pad_mask, False, False, max(decoding_chunk_size, 0),
+                self.static_chunk_size, num_decoding_left_chunks)
+        else:
+            att_mask = pad_mask[:, None, :]
+        remat = self.gradient_checkpointing and self.training
         for i, name in enumerate(self.attention_names):
-            xs = getattr(self, f"layer_{i}")(
-                xs, getattr(self, name), att_mask, pos_emb, pad_mask,
-                out_lens)
+            layer, attn = getattr(self, f"layer_{i}"), getattr(self, name)
+            if remat:
+                xs = torch.utils.checkpoint.checkpoint(
+                    layer, xs, attn, att_mask, pos_emb, pad_mask, out_lens,
+                    use_reentrant=False)
+            else:
+                xs = layer(xs, attn, att_mask, pos_emb, pad_mask, out_lens)
         return layer_norm(self.after_norm, xs), out_lens
 
     def _chunk(self, xs, out_lens, pos_emb, streaming_state, offset: int,

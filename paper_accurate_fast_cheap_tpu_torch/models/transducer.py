@@ -114,8 +114,11 @@ class Transducer(nn.Module):
     # ---- inference surfaces ----
 
     @torch.no_grad()
-    def forward_encoder(self, feats: torch.Tensor, feat_lens: torch.Tensor):
-        return self.encoder(feats, feat_lens)
+    def forward_encoder(self, feats: torch.Tensor, feat_lens: torch.Tensor,
+                        decoding_chunk_size: int = 0,
+                        num_decoding_left_chunks: int = -1):
+        return self.encoder(feats, feat_lens, decoding_chunk_size,
+                            num_decoding_left_chunks)
 
     @torch.no_grad()
     def ctc_logprobs(self, enc_out: torch.Tensor):

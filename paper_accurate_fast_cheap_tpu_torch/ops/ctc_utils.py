@@ -1,6 +1,6 @@
 """CTC alignment utilities for long-form CTM timing (port of the JAX
-``ops/ctc_utils.py``: the host helpers and the batched CTC Viterbi on the
-device).
+``ops/ctc_utils.py``: the host helpers, the host aligner ``force_align``
+and the batched CTC Viterbi on the device).
 
 :func:`viterbi_path_device` is plain PyTorch on the device: a forward loop
 over the T frames of (B, S) tensor ops that keeps int8 backpointers, then a
@@ -21,6 +21,45 @@ def insert_blank(labels: Sequence[int], blank_id: int = 0) -> np.ndarray:
     out = np.full(2 * len(labels) + 1, blank_id, np.int64)
     out[1::2] = labels
     return out
+
+
+def force_align(ctc_probs: np.ndarray, labels: Sequence[int],
+                blank_id: int = 0) -> List[int]:
+    """Viterbi alignment over the CTC graph on the host, in float64 numpy as
+    the JAX package's ``force_align``: ctc_probs (T, V) log-probs, labels
+    (U,) -> per-frame token ids (blank or label) of the best path."""
+    ctc_probs = np.asarray(ctc_probs)
+    T = ctc_probs.shape[0]
+    y = insert_blank(list(labels), blank_id)
+    S = len(y)
+    lp = ctc_probs[:, y]
+    allow2 = np.zeros(S, bool)
+    allow2[2:] = (y[2:] != blank_id) & (y[2:] != y[:-2])
+    neg = -np.inf
+    srange = np.arange(S)
+    bp = np.tile(srange, (T, 1))
+    alpha = np.full(S, neg)
+    alpha[0] = lp[0, 0]
+    if S > 1:
+        alpha[1] = lp[0, 1]
+    # ties keep the source priority stay > s-1 > s-2 (first maximum)
+    for t in range(1, T):
+        c1 = np.full(S, neg)
+        c1[1:] = alpha[:-1]
+        c2 = np.full(S, neg)
+        if S > 2:
+            c2[2:] = np.where(allow2[2:], alpha[:-2], neg)
+        stack = np.stack((alpha, c1, c2))
+        k = np.argmax(stack, axis=0)
+        alpha = stack[k, srange] + lp[t]
+        bp[t] = srange - k
+    s = S - 2 if S > 1 and alpha[S - 2] > alpha[S - 1] else S - 1
+    path = np.zeros(T, np.int64)
+    for t in range(T - 1, -1, -1):
+        path[t] = y[s]
+        if t > 0:
+            s = bp[t, s]
+    return [int(x) for x in path]
 
 
 def alignment_to_token_spans(

@@ -275,6 +275,10 @@ class StreamingBatch(_Geometry):
     def any_ready(self) -> bool:
         return any(self._is_ready(s) for s in self._slots)
 
+    def ready(self, sid: int) -> bool:
+        """Whether slot ``sid`` holds a window the next step would take."""
+        return self._is_ready(self._require(sid))
+
     def partial(self, sid: int) -> PartialResult:
         slot = self._require(sid)
         text, _ = self._tokenizer.detokenize(slot.tokens)
@@ -412,7 +416,13 @@ class BatchStreamWorker:
             self._cv.notify_all()
 
     def partial(self, sid: int) -> PartialResult:
+        """The slot's partial once the stepper has taken every full window
+        it holds, as a per-connection session's ``accept_waveform``
+        returns it (a partial read before would lag the audio by the
+        steps still queued, and under load the last one could miss the
+        utterance's words)."""
         with self._cv:
+            self._cv.wait_for(lambda: self._stop or not self._b.ready(sid))
             return self._b.partial(sid)
 
     def finalize(self, sid: int) -> PartialResult:

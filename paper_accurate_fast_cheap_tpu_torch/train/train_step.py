@@ -7,8 +7,14 @@ bias-corrected) -> ``add_decayed_weights`` (decoupled) ->
 ``scale_by_learning_rate`` (the schedule read at the optimizer's own count,
 from 0).  ``torch.optim.Adam`` couples its weight decay into the gradient,
 so it is not used.  Parameters are a dict of named tensors (a module's
-``named_parameters``, run through ``torch.func.functional_call``); the
+``named_parameters``, bound into the module by ``bind_params``); the
 step is functional: it returns new parameter and optimizer-state dicts.
+A loss function binds its parameters into the model with ``bind_params``:
+they stay in the module through the backward, where the checkpointed
+recomputations (the RNN-T loss's joint chunks, the encoder's
+``gradient_checkpointing``) read them; ``torch.func.functional_call``
+restores the module's own tensors when the forward returns, so those
+recomputations would read stale weights.
 
 The skip rule keeps the parameters and the whole optimizer state, count
 included, when the gradient norm is not finite or exceeds
@@ -92,6 +98,14 @@ def make_optimizer(optim: str = "adam", lr_schedule=None,
             "nu": dict(zip(names, nu))}
 
     return Optimizer(init, update)
+
+
+def bind_params(module: torch.nn.Module, params: Params) -> None:
+    """Install ``params`` (parameter name -> tensor) in ``module``'s
+    parameter slots in place of its own, until the next call."""
+    for name, t in params.items():
+        path, _, leaf = name.rpartition(".")
+        (module.get_submodule(path) if path else module)._parameters[leaf] = t
 
 
 def apply_updates(params: Params, updates: Params) -> Params:

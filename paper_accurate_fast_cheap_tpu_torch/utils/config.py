@@ -1,5 +1,5 @@
-"""Config loading and ``--set`` overrides (port of the JAX
-``utils/config.py``: ``load_config``, ``override_config``).
+"""Config loading, saving and ``--set`` overrides (port of the JAX
+``utils/config.py``: ``load_config``, ``save_config``, ``override_config``).
 
 A ``.json`` path is read with the standard library; any other path is YAML,
 and ``yaml`` is imported only then (and by ``override_config``, whose
@@ -20,6 +20,13 @@ def load_config(path: str) -> Dict[str, Any]:
         import yaml
 
         return yaml.safe_load(f)
+
+
+def save_config(config: Dict[str, Any], path: str) -> None:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f, sort_keys=False)
 
 
 def override_config(config: Dict[str, Any],

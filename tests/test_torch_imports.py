@@ -26,7 +26,8 @@ def test_port_imports_no_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'paper_accurate_fast_cheap_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
+        "'paper_accurate_fast_cheap_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -37,8 +38,9 @@ def test_port_imports_no_jax():
     assert len(mods) >= 20
     # the training slice's modules and those of the attention decoder, the
     # short-form CLI, the crash-repro tool, the encoder's attention types,
-    # the WeNet converter, Mamba-2 and the streaming and serving surface are
-    # among those imported
+    # the WeNet converter, Mamba-2, the streaming and serving surface, the
+    # chunk masks, the scoring and load-bench tools and the training CLI
+    # are among those imported
     assert {f"{PKG}.{m}" for m in (
         "ops.ffn", "ops.rnnt", "train.schedulers", "train.train_step",
         "bin.train_bench", "ops.multi_product", "ops.losses",
@@ -48,7 +50,11 @@ def test_port_imports_no_jax():
         "models.embedding", "tools.convert_checkpoint", "ops.ssd",
         "models.mamba", "decode.streaming", "streaming",
         "bin.streaming_bench", "api", "bin.serve", "bin.ws_client",
-        "tools.latency_metrics")} <= set(mods)
+        "tools.latency_metrics", "utils.masks", "tools.wer",
+        "bin.compute_wer", "bin.ws_bench", "frontend.augment",
+        "data.augmentations", "train.checkpointing", "train.executor",
+        "train.metrics_logger", "bin.train", "bin.average_model")} <= set(
+            mods)
 
 
 def test_port_sources_do_not_name_the_jax_package():
@@ -57,7 +63,8 @@ def test_port_sources_do_not_name_the_jax_package():
     script names the TPU kernels' files in its report, so only its imports
     are checked.)"""
     pat = re.compile(r"paper_accurate_fast_cheap_tpu(?!_torch)")
-    imp = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
+    imp = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b",
+                     re.M)
     offenders = []
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         if imp.search(f.read()):
@@ -83,7 +90,7 @@ def test_entry_points_default_to_cuda():
 
     from paper_accurate_fast_cheap_tpu_torch import api, resolve_device
     from paper_accurate_fast_cheap_tpu_torch.bin import (
-        recognize_wav, serve, streaming_bench, train_bench)
+        recognize_wav, serve, streaming_bench, train, train_bench)
     from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
     from paper_accurate_fast_cheap_tpu_torch.models import factory
 
@@ -107,6 +114,9 @@ def test_entry_points_default_to_cuda():
                             "--wav", "x.wav", "--output_dir", "out"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_bench.main(["--config", "c.json"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--config", "c.json", "--train_data", "t.list",
+                    "--model_dir", "run"])
     # the streaming bench, the API and the server (any directory: the
     # device is asked for before the model is read)
     with pytest.raises(RuntimeError, match="device='cpu'"):

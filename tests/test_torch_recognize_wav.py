@@ -14,6 +14,14 @@ rel-pos MHA transducer decodes through both CLIs with
 ``--encoder_context_size 8 --encoder_global_tokens 1`` (LCA): the port's
 CLI reads the MHA checkpoint, the JAX CLI (which restores its checkpoint
 without a template) the same weights under the LCA modules' names.
+
+The beam options of the long-form path, on the standard joint at
+``--batch_size 8``: the packed-alignment path with the pairwise merge and
+with ``--beam_merge sort``, each against one run of the JAX CLI at its
+default for that batch (``--fuse split``, packed alignment);
+``--align_max_tokens`` is short enough that some windows fall back to the
+batched aligner.  They share this module's assets and, on the JAX side,
+its compilations.
 """
 import io
 import json
@@ -213,3 +221,60 @@ def test_hat_beam_auto_matches_jax(assets):
         assert x.nbest == y.nbest
         np.testing.assert_allclose(y.nbest_scores, x.nbest_scores,
                                    rtol=1e-5)
+
+
+# 100-frame windows: 3 real rows and 5 padded ones in one batch of 8; 20
+# aligned tokens are fewer than two windows' hypotheses (23 tokens)
+BEAM_COMMON = ["--mode", "rnnt_beam_search", "--beam_size", str(BEAM),
+               "--precision", "fp32", "--chunk_size", "100",
+               "--batch_size", "8"]
+
+
+@pytest.fixture(scope="module")
+def jax_beam_out(assets):
+    """The JAX CLI once, at its default for this batch (``--fuse split``,
+    the pairwise merge): the two merges write the same bytes."""
+    d, wav_path, out = assets
+    a = out["standard"]
+    jdir = d / "jax_split"
+    assert j_cli.main(BEAM_COMMON + [
+        "--wav", str(wav_path), "--config", str(a["cfg"]), "--checkpoint",
+        str(a["ckpt"]), "--fuse", "split", "--output_dir", str(jdir)]) == 0
+    return jdir
+
+
+@pytest.mark.parametrize("merge", ["pairwise", "sort"])
+def test_beam_cli_matches_jax_cli(assets, jax_beam_out, merge, monkeypatch):
+    from paper_accurate_fast_cheap_tpu_torch.ops import ctc_utils
+
+    oks, fallback = [], []
+    unpack = t_search.finalize_device_beam_aligned
+    batch_align = ctc_utils.force_align_batch_device
+
+    def spy_unpack(*a, **k):
+        out = unpack(*a, **k)
+        oks.extend(out[2].tolist())
+        return out
+
+    def spy_align(logp, lens, labels, *a, **k):
+        fallback.extend(lab for lab in labels if lab)
+        return batch_align(logp, lens, labels, *a, **k)
+
+    monkeypatch.setattr(t_search, "finalize_device_beam_aligned",
+                        spy_unpack)
+    monkeypatch.setattr(ctc_utils, "force_align_batch_device", spy_align)
+    d, wav_path, out = assets
+    tdir = d / f"torch_beam_{merge}"
+    assert t_cli.main(BEAM_COMMON + [
+        "--wav", str(wav_path), "--config", str(out["standard"]["cfg"]),
+        "--checkpoint", str(out["standard"]["pt"]), "--device", "cpu",
+        "--beam_merge", merge, "--align_max_tokens", "20", "--output_dir",
+        str(tdir)]) == 0
+    for ext in (".txt", ".ctm"):
+        assert (tdir / f"ep{ext}").read_bytes() == \
+            (jax_beam_out / f"ep{ext}").read_bytes(), ext
+    words = (tdir / "ep.ctm").read_text().split()[4::5]
+    assert len(words) > 8 and len(set(words)) > 3
+    # both paths ran: rows aligned by the beam, and longer ones by the
+    # batched aligner
+    assert any(oks) and fallback

@@ -252,7 +252,7 @@ def model_dir(families, tmp_path_factory):
                   tokenizer_conf={"symbol_table_path": "units.txt"},
                   dataset_conf=FBANK)
     (d / "train.yaml").write_text(json.dumps(config))
-    torch.save(families["rwkv"][2].state_dict(), str(d / "final.pt"))
+    torch.save(families["rwkv"][2].state_dict(), str(d / "epoch_0000.pt"))
     return d
 
 
