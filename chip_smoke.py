@@ -84,6 +84,22 @@ Phases, each fatal on failure (no phase is skipped or caught):
      directory, answered by bin/ws_client.py for 3 WAVs, streaming
      (per-connection sessions and a --streaming_batch slot) and whole
      buffer, the texts against a session's and transcribe_batch's;
+ 19. the paper's RTF harnesses at the JAX harnesses' defaults, with the
+     counters: bin/encoder_rtf.py on the bi-RWKV and MHA bench YAMLs (B4 x
+     9000 frames, bf16; K1 24 a forward on the first) and a sweep of
+     batches 1, 4 x chunks 2000, 9000 aggregated by tools/rtf_tables;
+     bin/decode_rtf.py on the paper's YAML (B64 x 3000 frames, beam 8) with
+     the device beam (K1, K2 and K3) and CTC greedy; bin/beam_bench.py with
+     both merges (K4 once a frame); bin/scan_op_bench.py's components
+     (wall and device ms a frame; K5);
+ 20. the data tools on the flagship in f32 and 16 WAVs of 2-15 s, the card
+     against the CPU: compute_cmvn_stats, compute_fbank_feats (whole files
+     and segments), align (the CTM byte for byte) and write_embeddings
+     --build_index;
+ 21. decode/search.attention_beam_search, plain and with GNMT's length and
+     coverage scorers, on the paper's YAML cut to 2 blocks in f32 (the
+     card's tokens against the CPU's), then timed at full width on 8
+     utterances at beam 10;
 then one JSON line with every kernel's numbers and, last, the result line.
 K1 is also held and timed at the streaming call (8 x 16 x 8 x 64, the
 state in and out, bf16) in phase 3.
@@ -3245,6 +3261,458 @@ def phase_ws_bench(work: str, rng) -> bool:
     return good
 
 
+# -- slice 12: the paper's RTF harnesses, the attention beam search, and
+# the align, fbank, CMVN and embedding CLIs
+
+BENCH_RWKV_YAML = "examples/gigaspeech/conf/bench_rwkvbi_ds4k31nc_12le.yaml"
+BENCH_MHA_YAML = "examples/gigaspeech/conf/bench_mha_ds4k31nc_12le.yaml"
+# the JAX harnesses' defaults: encoder_rtf B4 x 9000 frames, 2 + 10 runs;
+# decode_rtf B64 x 3000 frames (749 encoder frames), beam 8, 2 + 5 runs;
+# beam_bench and scan_op_bench B64 x 750 frames, V 5002, 512/512, beam 8,
+# 2 + 5 runs
+RTF_RUNS = 2 + 10
+DEC_CHUNK, DEC_RUNS = 3000, 2 + 5
+DEC_FRAMES = ((DEC_CHUNK - 1) // 2 - 1) // 2
+BB_FRAMES, BB_RUNS = 750, 2 + 5
+TOOL_WAVS = 16
+
+
+def _captured(fn, argv):
+    """Run a CLI's main, echo its stdout through log(); (rc, stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    out = buf.getvalue()
+    for ln in out.splitlines():
+        log(f"  | {ln}")
+    return rc, out
+
+
+def _want(**nonzero) -> dict:
+    want = dict.fromkeys(counters(), 0)
+    want.update(nonzero)
+    return want
+
+
+def _rtf_file(path: str) -> dict:
+    with open(path) as f:
+        return dict(ln.split(" ", 1) for ln in f.read().splitlines())
+
+
+def phase_encoder_rtf(work: str):
+    """bin/encoder_rtf.py at JAX's defaults (B4 x 9000 frames, bf16, 2 + 10
+    runs) on the bi-RWKV and the MHA bench YAMLs (K1 24 a forward on the
+    first, none on the second), then a sweep of batches 1, 4 x chunks 2000,
+    9000 on the bi-RWKV YAML aggregated by tools/rtf_tables.  Returns (ok,
+    {yaml: 1/RTF})."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import encoder_rtf
+    from paper_accurate_fast_cheap_tpu_torch.tools import rtf_tables
+
+    ok, inv = True, {}
+    for path, k1 in ((BENCH_RWKV_YAML, 24 * RTF_RUNS), (BENCH_MHA_YAML, 0)):
+        name = os.path.splitext(os.path.basename(path))[0]
+        out = os.path.join(work, f"{name}.rtf")
+        zero_counts()
+        rc = encoder_rtf.main(["--config", path, "--output", out])
+        torch.cuda.synchronize()
+        counts, want = read_counts(), _want(wkv6_fwd=k1)
+        rtf = _rtf_file(out)
+        inv[name] = 1.0 / float(rtf["final_rtf"])
+        good = (rc == 0 and counts == want
+                and rtf["kernels_cached"] == "yes")
+        ok = ok and good
+        log(f"encoder_rtf {name} (B4 x 9000, bf16, {RTF_RUNS} forwards): "
+            f"1/RTF {inv[name]:.1f}, peak {rtf['max_vram_mb']} MB, counters "
+            f"{json.dumps(counts)}, expected {json.dumps(want)} "
+            f"{'ok' if good else 'FAIL'}")
+    d = os.path.join(work, "rtf_sweep")
+    zero_counts()
+    rc = encoder_rtf.main(["--config", BENCH_RWKV_YAML, "--sweep_batches",
+                           "1,4", "--sweep_chunks", "2000,9000",
+                           "--sweep_dir", d])
+    torch.cuda.synchronize()
+    counts, want = read_counts(), _want(wkv6_fwd=4 * 24 * RTF_RUNS)
+    rows = rtf_tables.aggregate([os.path.join(d, f) for f in os.listdir(d)])
+    peaks = {f: _rtf_file(os.path.join(d, f))["max_vram_mb"]
+             for f in sorted(os.listdir(d))}
+    good = (rc == 0 and counts == want and len(rows) == 4
+            and all(r["runs"] == 1 for r in rows))
+    ok = ok and good
+    log(f"encoder_rtf sweep (batches 1,4 x chunks 2000,9000): "
+        + "; ".join(f"B{r['batch']} x {r['chunk']}: 1/RTF "
+                    f"{r['inv_rtf_mean']:.1f}" for r in rows)
+        + f"; peak MB per run {json.dumps(peaks)}, counters "
+        f"{json.dumps(counts)} {'ok' if good else 'FAIL'}")
+    return ok, inv
+
+
+def phase_decode_rtf(work: str):
+    """bin/decode_rtf.py at JAX's defaults on the paper's YAML (B64 x 3000
+    frames = 749 encoder frames, beam 8, bf16, 2 + 5 runs): the device beam
+    (K1 24, K2 749 and K3 750 a run), then the CTC greedy search (K1
+    only).  Returns (ok, {mode: 1/RTF})."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import decode_rtf
+
+    ok, inv = True, {}
+    for mode, want in (
+            ("rnnt_beam_search", _want(wkv6_fwd=24 * DEC_RUNS,
+                                       joint_topk=DEC_FRAMES * DEC_RUNS,
+                                       lstm_step=(DEC_FRAMES + 1)
+                                       * DEC_RUNS)),
+            ("ctc_greedy_search", _want(wkv6_fwd=24 * DEC_RUNS))):
+        out = os.path.join(work, f"decode_{mode}.rtf")
+        zero_counts()
+        rc = decode_rtf.main(["--config", PAPER_YAML, "--mode", mode,
+                              "--output", out])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        rtf = _rtf_file(out)
+        inv[mode] = 1.0 / float(rtf["final_rtf"])
+        good = rc == 0 and counts == want
+        ok = ok and good
+        log(f"decode_rtf {mode} (paper's YAML, B64 x {DEC_CHUNK} frames, "
+            f"beam 8, bf16): 1/RTF {inv[mode]:.1f}, mean tokens "
+            f"{rtf['beam'].split()[-1]}, peak "
+            f"{rtf['max_vram_mb']} MB, counters {json.dumps(counts)}, "
+            f"expected {json.dumps(want)} {'ok' if good else 'FAIL'}")
+    return ok, inv
+
+
+def phase_beam_bench():
+    """bin/beam_bench.py at its defaults (B64 x 750 frames, V 5002, 512 /
+    512, beam 8, 2 + 5 runs) with both merges: the toy joint has no split
+    form, so the beam takes K4 once a frame.  Returns (ok, {merge: ms a
+    frame})."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import beam_bench
+
+    ok, ms = True, {}
+    for merge in ("sort", "pairwise"):
+        zero_counts()
+        rc, out = _captured(beam_bench.main, ["--merge", merge])
+        torch.cuda.synchronize()
+        counts, want = read_counts(), _want(fused_topk=BB_FRAMES * BB_RUNS)
+        ms[merge] = float(out.split(" ms/frame")[0].rsplit(" ", 1)[1])
+        good = rc == 0 and counts == want
+        ok = ok and good
+        log(f"beam_bench --merge {merge}: {ms[merge]:.3f} ms a frame, "
+            f"counters {json.dumps(counts)}, expected {json.dumps(want)} "
+            f"{'ok' if good else 'FAIL'}")
+    return ok, ms
+
+
+def phase_scan_op_bench():
+    """bin/scan_op_bench.py at its defaults, every component but
+    approx_topk (a TPU approximate op the port refuses): wall and device
+    ms a frame per component; topk and pallas_topk are K5, 750 launches a
+    run over 2 + 5 runs and one profiled run each.  Returns ok."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import scan_op_bench
+
+    names = ["noop", "joint", "fuse", "topk", "lax_topk", "pallas_topk",
+             "merge", "gather", "pred", "hypbuf", "bookkeep"]
+    zero_counts()
+    rc, out = _captured(scan_op_bench.main, ["--only", ",".join(names)])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = _want(topk=2 * BB_FRAMES * (BB_RUNS + 1))
+    good = (rc == 0 and counts == want
+            and all(f"{n:12s}: " in out for n in names))
+    log(f"scan_op_bench (B64 x 750, beam 8): counters {json.dumps(counts)}, "
+        f"expected {json.dumps(want)} {'ok' if good else 'FAIL'}")
+    return good
+
+
+def write_tool_inputs(d: str, rng) -> dict:
+    """TOOL_WAVS seeded 16 kHz WAVs of 2-15 s (noise, 0.1 of full scale)
+    with random transcripts as a raw list and a wav.scp, a segments file
+    over the first four, a whitespace symbol table of VOCAB pieces, the
+    flagship's f32 state_dict (seed 50, its bf16 RWKV cast off: f32 on
+    both devices).  Returns the paths and the audio seconds."""
+    import torch
+
+    units = os.path.join(d, "units.txt")
+    with open(units, "w") as f:
+        f.write("<blank> 0\n<unk> 1\n")
+        for i in range(2, VOCAB):
+            f.write(f"{'▁w' if i % 3 == 0 else 'p'}{i} {i}\n")
+    words = [f"{'▁w' if i % 3 == 0 else 'p'}{i}" for i in range(2, VOCAB)]
+    paths = {k: os.path.join(d, k) for k in ("data.list", "wav.scp",
+                                             "segments")}
+    audio_s = 0.0
+    with open(paths["data.list"], "w") as fl, open(paths["wav.scp"],
+                                                   "w") as fs, \
+            open(paths["segments"], "w") as fg:
+        for i in range(TOOL_WAVS):
+            n = int(rng.uniform(2.0, 15.0) * 16000)
+            pcm = np.clip(rng.randn(n) * 0.1 * 32768, -32768,
+                          32767).astype(np.int16)
+            wav = os.path.join(d, f"tool_{i:02d}.wav")
+            _write_wav(wav, pcm)
+            audio_s += n / 16000.0
+            txt = " ".join(rng.choice(words, rng.randint(3, 13)))
+            fl.write(json.dumps({"key": f"tool_{i:02d}", "wav": wav,
+                                 "txt": txt}) + "\n")
+            fs.write(f"tool_{i:02d} {wav}\n")
+            if i < 4:
+                fg.write(f"seg_{i} tool_{i:02d} 0.25 1.75\n")
+    model = build_model(seed=50, label="flagship (data tools)")
+    paths["ckpt"] = os.path.join(d, "tools.pt")
+    torch.save(model.state_dict(), paths["ckpt"])
+    del model
+    paths["units"], paths["audio_s"] = units, audio_s
+    return paths
+
+
+def _tool_config(d: str, paths, cmvn: str) -> str:
+    path = os.path.join(d, "tools.json")
+    with open(path, "w") as f:
+        json.dump(dict(CONFIG, tokenizer="whitespace",
+                       tokenizer_conf={"symbol_table_path": paths["units"]},
+                       encoder_conf=dict(FLAGSHIP_ENCODER,
+                                         rwkv_do_bfloat16=False),
+                       cmvn="global_cmvn",
+                       cmvn_conf={"cmvn_file": cmvn, "is_json_cmvn": True},
+                       dataset_conf={"fbank_conf": {
+                           "num_mel_bins": 80, "frame_shift": 10,
+                           "frame_length": 25, "dither": 0.0}}), f)
+    return path
+
+
+def _both(fn, argv_of, label: str):
+    """fn.main on the card (counters zeroed just before, read just after)
+    and on the CPU; (ok, {dev: seconds}, card counters)."""
+    import torch
+
+    secs, counts, ok = {}, None, True
+    for dev in ("cuda", "cpu"):
+        zero_counts()
+        t0 = time.perf_counter()
+        rc, _ = _captured(fn, argv_of(dev) + ["--device", dev])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+        secs[dev] = time.perf_counter() - t0
+        ok = ok and rc == 0
+    log(f"{label}: card {secs['cuda']:.2f} s, CPU {secs['cpu']:.2f} s, "
+        f"card counters {json.dumps(counts)}")
+    return ok, secs, counts
+
+
+def phase_data_tools(work: str, rng) -> bool:
+    """compute_cmvn_stats, compute_fbank_feats (whole files and segments),
+    align and write_embeddings --build_index on the flagship (f32) and 16
+    WAVs of 2-15 s, each on the card and on the CPU: the CMVN sums within
+    1e-5 relative, the ark matrices within 1e-3 wherever the mel energy is
+    above e^2 and every mel energy within 1e-5 of its frame's, the CTM and
+    path files identical, the embeddings within 1e-3 and the index names
+    identical; K1 24 a forward.  Returns ok."""
+    from paper_accurate_fast_cheap_tpu_torch.bin import (
+        align, compute_cmvn_stats, compute_fbank_feats, write_embeddings)
+    from paper_accurate_fast_cheap_tpu_torch.data import kaldi_io
+    from paper_accurate_fast_cheap_tpu_torch.tools.vector_index import (
+        VectorIndex)
+
+    d = os.path.join(work, "tools")
+    os.makedirs(d)
+    paths = write_tool_inputs(d, rng)
+    log(f"data tools: {TOOL_WAVS} WAVs, {paths['audio_s']:.1f} s of audio")
+    ok = True
+
+    good, _, counts = _both(
+        compute_cmvn_stats.main,
+        lambda dev: ["--data", paths["data.list"], "--data_type", "raw",
+                     "--out_cmvn", os.path.join(d, f"cmvn_{dev}.json")],
+        "compute_cmvn_stats")
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        with open(os.path.join(d, f"cmvn_{dev}.json")) as f:
+            stats[dev] = json.load(f)
+    rel = max(float(np.max(np.abs(np.subtract(stats["cuda"][k],
+                                              stats["cpu"][k]))
+                           / np.abs(stats["cpu"][k])))
+              for k in ("mean_stat", "var_stat"))
+    good = (good and rel <= 1e-5 and counts == _want()
+            and stats["cuda"]["frame_num"] == stats["cpu"]["frame_num"] > 0)
+    ok = ok and good
+    log(f"compute_cmvn_stats card vs CPU: {stats['cpu']['frame_num']} "
+        f"frames, max rel diff {rel:.3e} <= 1e-5 {'ok' if good else 'FAIL'}")
+
+    for seg in (False, True):
+        extra = ["--segments", paths["segments"]] if seg else []
+        good, _, counts = _both(
+            compute_fbank_feats.main,
+            lambda dev: [paths["wav.scp"], os.path.join(d, f"f{seg}_{dev}"
+                                                        ".ark"),
+                         os.path.join(d, f"f{seg}_{dev}.scp")] + extra,
+            f"compute_fbank_feats{' --segments' if seg else ''}")
+        mats = {dev: dict(kaldi_io.read_ark(os.path.join(
+            d, f"f{seg}_{dev}.ark"))) for dev in ("cuda", "cpu")}
+        err, err_e, quiet = 0.0, 0.0, 0
+        for k, want in mats["cpu"].items():
+            got = mats["cuda"][k]
+            loud = want >= 2.0
+            quiet += int((~loud).sum())
+            err = max(err, float(np.abs(got - want)[loud].max()))
+            e_t = np.exp(got.astype(np.float64))
+            e_j = np.exp(want.astype(np.float64))
+            err_e = max(err_e, float((np.abs(e_t - e_j)
+                                      / e_j.sum(-1, keepdims=True)).max()))
+        good = (good and list(mats["cuda"]) == list(mats["cpu"])
+                and len(mats["cpu"]) == (4 if seg else TOOL_WAVS)
+                and err <= 1e-3 and err_e <= 1e-5 and counts == _want())
+        ok = ok and good
+        log(f"compute_fbank_feats{' --segments' if seg else ''} card vs CPU: "
+            f"{len(mats['cpu'])} matrices, max abs diff {err:.3e} <= 1e-3 "
+            f"where the mel energy > e^2 ({quiet} entries below), max "
+            f"energy diff / frame energy {err_e:.3e} <= 1e-5 "
+            f"{'ok' if good else 'FAIL'}")
+
+    config = _tool_config(d, paths, os.path.join(d, "cmvn_cuda.json"))
+    good, secs, counts = _both(
+        align.main,
+        lambda dev: ["--config", config, "--checkpoint", paths["ckpt"],
+                     "--input_data", paths["data.list"], "--output",
+                     os.path.join(d, f"ali_{dev}.ctm"), "--frames_path",
+                     os.path.join(d, f"ali_{dev}.frames")],
+        "align")
+    files = {}
+    for dev in ("cuda", "cpu"):
+        for ext in ("ctm", "frames"):
+            with open(os.path.join(d, f"ali_{dev}.{ext}"), "rb") as f:
+                files[dev, ext] = f.read()
+    same = all(files["cuda", e] == files["cpu", e] for e in ("ctm",
+                                                               "frames"))
+    n_lines = files["cuda", "ctm"].count(b"\n")
+    good = (good and same and n_lines > 0
+            and counts == _want(wkv6_fwd=24 * TOOL_WAVS))
+    ok = ok and good
+    log(f"align card vs CPU: CTM ({n_lines} lines) and paths identical "
+        f"{same}; card 1/RTF {paths['audio_s'] / secs['cuda']:.1f} (model "
+        f"load included) {'ok' if good else 'FAIL'}")
+
+    good, secs, counts = _both(
+        write_embeddings.main,
+        lambda dev: ["--config", config, "--checkpoint", paths["ckpt"],
+                     "--test_data", paths["data.list"], "--data_type",
+                     "raw", "--output_name", os.path.join(d, f"emb_{dev}"),
+                     "--build_index"],
+        "write_embeddings --build_index")
+    names = {}
+    for dev in ("cuda", "cpu"):
+        with open(os.path.join(d, f"emb_{dev}", "sample_names")) as f:
+            names[dev] = f.read()
+    err, n_layers = 0.0, 0
+    for i in range(FLAGSHIP_ENCODER["num_blocks"]):
+        got = np.loadtxt(os.path.join(d, "emb_cuda", f"embeddings_layer_{i}"))
+        want = np.loadtxt(os.path.join(d, "emb_cpu", f"embeddings_layer_{i}"))
+        err = max(err, float(np.abs(got - want).max()))
+        idx = VectorIndex.load(os.path.join(d, "emb_cuda",
+                                            f"index_layer_{i}.npz"))
+        n_layers += idx.names == names["cpu"].split()
+    good = (good and names["cuda"] == names["cpu"] and err <= 1e-3
+            and n_layers == FLAGSHIP_ENCODER["num_blocks"]
+            and counts == _want(wkv6_fwd=24))
+    ok = ok and good
+    log(f"write_embeddings card vs CPU: sample_names identical "
+        f"{names['cuda'] == names['cpu']}, {n_layers} layers x "
+        f"{TOOL_WAVS} x 512, max abs diff {err:.3e} <= 1e-3, indexes' "
+        f"names ok {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def phase_attention_search(rng) -> bool:
+    """decode/search.attention_beam_search on the paper's YAML cut to 2
+    encoder and 2 + 1 decoder blocks, f32, 2 utterances of random features
+    (300 and 220 frames): plain and with GNMT's length (0.9) and coverage
+    (0.4) scorers, beam 4, the card's tokens against the CPU's; then the
+    full-width model on 8 utterances (400-800 frames), beam 10, f32,
+    timed.  Returns ok."""
+    import copy
+
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.decode import search
+    from paper_accurate_fast_cheap_tpu_torch.models import factory
+
+    def paper(blocks=None):
+        conf = paper_config()
+        enc = dict(conf["encoder_conf"], rwkv_do_bfloat16=False)
+        dec = dict(conf["decoder_conf"])
+        if blocks:
+            enc["num_blocks"] = blocks
+            dec.update(num_blocks=blocks, r_num_blocks=1)
+        return dict(conf, encoder_conf=enc, decoder_conf=dec)
+
+    ok = True
+    model, _ = factory.init_model(paper(2), VOCAB, 80, device="cpu",
+                                  generator=torch.Generator().manual_seed(60))
+    sos = eos = 2   # the YAML's special tokens
+    feats = torch.from_numpy(rng.randn(2, 300, 80).astype(np.float32))
+    lens = torch.tensor([300, 220])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        zero_counts()
+        with torch.no_grad():
+            enc, elens = m.forward_encoder(feats.to(dev), lens.to(dev))
+        k1 = read_counts()["wkv6_fwd"]
+        for name, kw in (("plain", {}),
+                         ("GNMT", dict(gnmt_alpha=0.9, gnmt_beta=0.4,
+                                       decoder_one_step_attn=search
+                                       .make_gnmt_step_fn(m)))):
+            res[dev, name] = search.attention_beam_search(
+                m.decoder.forward_one_step, enc, elens, sos, eos,
+                beam_size=4, **kw)
+        if dev == "cuda":
+            ok = ok and k1 == 4
+    for name in ("plain", "GNMT"):
+        a, b = res["cuda", name], res["cpu", name]
+        same = [r.tokens for r in a] == [r.tokens for r in b]
+        good = same and all(abs(x.score - y.score) <= 1e-3 * max(
+            1.0, abs(y.score)) for x, y in zip(a, b))
+        ok = ok and good
+        log(f"attention_beam_search {name} (paper's YAML, 2 blocks, f32, "
+            f"beam 4): card vs CPU tokens identical {same}, scores "
+            f"{[round(r.score, 4) for r in a]} / "
+            f"{[round(r.score, 4) for r in b]}, tokens per utterance "
+            f"{[len(r.tokens) for r in a]} {'ok' if good else 'FAIL'}")
+    del model
+    model, _ = factory.init_model(paper(), VOCAB, 80,
+                                  generator=torch.Generator().manual_seed(61))
+    T = rng.randint(400, 801, 8)
+    feats = torch.from_numpy(rng.randn(8, int(T.max()), 80).astype(
+        np.float32)).cuda()
+    lens = torch.from_numpy(T).cuda()
+    with torch.no_grad():
+        enc, elens = model.forward_encoder(feats, lens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = search.attention_beam_search(model.decoder.forward_one_step, enc,
+                                       elens, sos, eos, beam_size=10)
+    wall = time.perf_counter() - t0
+    steps = int(elens.max()) + 1
+    good = len(out) == 8 and all(np.isfinite(r.score) for r in out)
+    ok = ok and good
+    log(f"attention_beam_search at full width (the paper's YAML, 8 "
+        f"utterances of {T.min()}-{T.max()} frames, {steps} steps, beam 10, "
+        f"f32): {wall:.2f} s, {wall / steps * 1e3:.2f} ms a step, tokens per "
+        f"utterance {[len(r.tokens) for r in out]} "
+        f"{'ok' if good else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=32)
@@ -3393,6 +3861,20 @@ def main() -> int:
             failed.append("websocket server")
         if not phase_ws_bench(work, np.random.RandomState(33)):
             failed.append("ws_bench")
+        # the RTF harnesses, the attention beam search and the data tools
+        torch.cuda.empty_cache()
+        if not phase_encoder_rtf(work)[0]:
+            failed.append("encoder_rtf")
+        if not phase_decode_rtf(work)[0]:
+            failed.append("decode_rtf")
+        if not phase_beam_bench()[0]:
+            failed.append("beam_bench")
+        if not phase_scan_op_bench():
+            failed.append("scan_op_bench")
+        if not phase_data_tools(work, np.random.RandomState(34)):
+            failed.append("data tools (align, fbank, CMVN, embeddings)")
+        if not phase_attention_search(np.random.RandomState(35)):
+            failed.append("attention beam search")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failed:

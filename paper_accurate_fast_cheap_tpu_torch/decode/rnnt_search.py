@@ -245,7 +245,6 @@ def _rnnt_beam_search_device(predictor_step, joint_step, init_state_fn,
     state = init_state_fn(B * N)
     pred_out, state = predictor_step(
         torch.full((B * N,), blank_id, dtype=torch.int32, device=dev), state)
-    hs, cs = state
 
     i32 = dict(dtype=torch.int32, device=dev)
     hyps = torch.zeros(B, N, L, **i32)
@@ -353,29 +352,26 @@ def _rnnt_beam_search_device(predictor_step, joint_step, init_state_fn,
         # predictor reorder + step (advance only where a token was emitted)
         sel = (row0 + n_src).reshape(-1)
         adv = n_adv.reshape(-1)
-        hs_g, cs_g = hs[:, sel], cs[:, sel]
+        state_g = _gather_state(state, sel)
         pred_g = pred_out[sel]
-        cand_out, (cand_h, cand_c) = predictor_step(new_last.reshape(-1),
-                                                    (hs_g, cs_g))
+        cand_out, cand_state = predictor_step(new_last.reshape(-1), state_g)
         pred_new = torch.where(adv[:, None], cand_out, pred_g)
-        hs_new = torch.where(adv[None, :, None], cand_h, hs_g)
-        cs_new = torch.where(adv[None, :, None], cand_c, cs_g)
+        state_new = _select_state(adv, cand_state, state_g)
 
         # frozen where the utterance already ended
         am = active[:, None]
-        amn = active.repeat_interleave(N)[:, None]
+        amn = active.repeat_interleave(N)
         hyps = torch.where(am[..., None], new_hyps, hyps)
         hyp_len = torch.where(am, n_len, hyp_len)
         scores = torch.where(am, top_scores, scores)
         h1 = torch.where(am, n_h1, h1)
         h2 = torch.where(am, n_h2, h2)
         last = torch.where(am, new_last, last)
-        pred_out = torch.where(amn, pred_new, pred_out)
-        hs = torch.where(amn[None], hs_new, hs)
-        cs = torch.where(amn[None], cs_new, cs)
+        pred_out = torch.where(amn[:, None], pred_new, pred_out)
+        state = _select_state(amn, state_new, state)
 
     return dict(hyps=hyps, hyp_len=hyp_len, scores=scores, h1=h1, h2=h2,
-                last=last, pred_out=pred_out, state=(hs, cs))
+                last=last, pred_out=pred_out, state=state)
 
 
 def pack_device_beam(out) -> torch.Tensor:

@@ -100,3 +100,13 @@ class ASRModel(nn.Module):
         if self.decoder is None:
             raise ValueError("this model has no attention decoder")
         return self.decoder.forward_one_step(enc, enc_lens, ys, ys_lens)
+
+    @torch.no_grad()
+    def decoder_one_step_attn(self, enc, enc_lens, ys, ys_lens):
+        """``decoder_one_step`` and the last decoder block's cross-attention
+        at the last position, averaged over heads (B, T): the GNMT coverage
+        scorer's step (``decode/search.make_gnmt_step_fn``)."""
+        if self.decoder is None:
+            raise ValueError("this model has no attention decoder")
+        return self.decoder.forward_one_step(enc, enc_lens, ys, ys_lens,
+                                             return_coverage=True)

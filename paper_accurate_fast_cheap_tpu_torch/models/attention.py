@@ -88,8 +88,10 @@ class MultiHeadedAttention(nn.Module):
         return q.to(dt), k.to(dt), v.to(dt)
 
     def _attend(self, scores: torch.Tensor, v: torch.Tensor,
-                mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """scores (B, H, Tq, Tk), unscaled (consumed) -> the output."""
+                mask: Optional[torch.Tensor], return_probs: bool = False):
+        """scores (B, H, Tq, Tk), unscaled (consumed) -> the output, and
+        with ``return_probs`` the attention probabilities (B, H, Tq, Tk)
+        it applied (zeros where masked)."""
         # sqrt(d_k) in f32, then cast to the scores' dtype (as the JAX
         # module)
         scale = torch.tensor(math.sqrt(self.d_k), dtype=torch.float32).to(
@@ -99,7 +101,8 @@ class MultiHeadedAttention(nn.Module):
         probs = self.attn_dropout(masked_softmax(scores, keep))
         out = torch.einsum("bhts,bshd->bthd", probs, v)
         B, Tq = out.shape[:2]
-        return dense(self.linear_out, out.reshape(B, Tq, self.d_model))
+        out = dense(self.linear_out, out.reshape(B, Tq, self.d_model))
+        return (out, probs) if return_probs else out
 
     @staticmethod
     def _with_cache(k, v, cache):
@@ -119,8 +122,13 @@ class MultiHeadedAttention(nn.Module):
     def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 pos_emb: Optional[torch.Tensor] = None, cache=None,
-                return_cache: bool = False):
+                return_cache: bool = False, return_probs: bool = False):
+        """The output; with ``return_cache`` also the new KV cache, with
+        ``return_probs`` (no cache) the attention probabilities."""
         q, k, v = self._qkv(x_q, x_kv)
+        if return_probs:
+            return self._attend(torch.einsum("bthd,bshd->bhts", q, k), v,
+                                mask, return_probs=True)
         new_cache = None
         if cache is not None:
             k, v, mask, new_cache = self._with_cache(k, v, cache)

@@ -240,11 +240,13 @@ class ConformerEncoder(nn.Module):
                 num_decoding_left_chunks: int = -1, *,
                 streaming_state: Optional[dict] = None,
                 return_state: bool = False, offset: int = 0,
-                att_cache_size: int = 0):
+                att_cache_size: int = 0, return_layers: bool = False):
         """Full forward, or with ``return_state`` one streaming chunk:
         positions from ``offset`` (encoder frames), no masks, and
         ``streaming_state`` ({"layers": [per-layer state]}, None at the
-        start) carried; returns (xs, out_lens, new streaming state)."""
+        start) carried; returns (xs, out_lens, new streaming state).  With
+        ``return_layers`` the full forward returns (xs, out_lens, [each
+        block's output, before the final norm])."""
         xs, out_lens = self.embed(xs, xs_lens)
         out_lens = torch.clamp(out_lens, max=xs.shape[1])
         xs, pos_emb = self.pos_enc(xs, offset=offset)
@@ -267,6 +269,7 @@ class ConformerEncoder(nn.Module):
         else:
             att_mask = pad_mask[:, None, :]
         remat = self.gradient_checkpointing and self.training
+        layer_outs = []
         for i, name in enumerate(self.attention_names):
             layer, attn = getattr(self, f"layer_{i}"), getattr(self, name)
             if remat:
@@ -275,7 +278,10 @@ class ConformerEncoder(nn.Module):
                     use_reentrant=False)
             else:
                 xs = layer(xs, attn, att_mask, pos_emb, pad_mask, out_lens)
-        return layer_norm(self.after_norm, xs), out_lens
+            if return_layers:
+                layer_outs.append(xs)
+        xs = layer_norm(self.after_norm, xs)
+        return (xs, out_lens, layer_outs) if return_layers else (xs, out_lens)
 
     def _chunk(self, xs, out_lens, pos_emb, streaming_state, offset: int,
                att_cache_size: int):

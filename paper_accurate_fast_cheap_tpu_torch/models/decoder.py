@@ -51,13 +51,20 @@ class DecoderLayer(nn.Module):
             d_model, linear_units, dropout_rate, activation="relu")
         self.dropout = nn.Dropout(dropout_rate)
 
-    def forward(self, x, self_mask, memory, memory_mask):
+    def forward(self, x, self_mask, memory, memory_mask,
+                return_src_probs: bool = False):
+        """The block's output; with ``return_src_probs`` also its
+        cross-attention probabilities (B, H, U, T)."""
         y = layer_norm(self.norm1, x)
         x = x + self.dropout(self.self_attn(y, y, self_mask))
         y = layer_norm(self.norm2, x)
-        x = x + self.dropout(self.src_attn(y, memory, memory_mask))
+        src = self.src_attn(y, memory, memory_mask,
+                            return_probs=return_src_probs)
+        src, probs = src if return_src_probs else (src, None)
+        x = x + self.dropout(src)
         y = layer_norm(self.norm3, x)
-        return x + self.dropout(self.feed_forward(y))
+        x = x + self.dropout(self.feed_forward(y))
+        return (x, probs) if return_src_probs else x
 
 
 class TransformerDecoder(nn.Module):
@@ -79,25 +86,42 @@ class TransformerDecoder(nn.Module):
         self.after_norm = nn.LayerNorm(d, eps=1e-5)
         self.output_layer = nn.Linear(d, vocab_size)
 
-    def forward(self, memory, memory_lens, ys_in, ys_lens):
+    def forward(self, memory, memory_lens, ys_in, ys_lens,
+                return_src_probs: bool = False):
         """memory (B, T, D), ys_in (B, U) starting with <sos> -> logits
-        (B, U, V)."""
+        (B, U, V); with ``return_src_probs`` also the last block's
+        cross-attention probabilities (B, H, U, T)."""
         x = self.embed(ys_in.long())
         x, _ = self.pos_enc(x)
         U = ys_in.shape[1]
         self_mask = (make_pad_mask(ys_lens, U)[:, None, :]
                      & subsequent_mask(U, ys_in.device)[None])
         mem_mask = make_pad_mask(memory_lens, memory.shape[1])[:, None, :]
+        probs = None
         for i in range(self.num_blocks):
-            x = getattr(self, f"layer_{i}")(x, self_mask, memory, mem_mask)
-        return dense(self.output_layer, layer_norm(self.after_norm, x))
+            last = return_src_probs and i == self.num_blocks - 1
+            x = getattr(self, f"layer_{i}")(x, self_mask, memory, mem_mask,
+                                            return_src_probs=last)
+            if last:
+                x, probs = x
+        logits = dense(self.output_layer, layer_norm(self.after_norm, x))
+        return (logits, probs) if return_src_probs else logits
 
-    def forward_one_step(self, memory, memory_lens, ys, ys_lens):
-        """Run the full prefix; log-probs (B, V) at position ys_lens - 1."""
-        logits = self(memory, memory_lens, ys, ys_lens)
+    def forward_one_step(self, memory, memory_lens, ys, ys_lens,
+                         return_coverage: bool = False):
+        """Run the full prefix; log-probs (B, V) at position ys_lens - 1.
+        With ``return_coverage`` also the last block's cross-attention at
+        the last query position, averaged over heads (B, T): the GNMT
+        coverage scorer's input (``decode/search.make_gnmt_step_fn``)."""
+        out = self(memory, memory_lens, ys, ys_lens,
+                   return_src_probs=return_coverage)
+        logits, probs = out if return_coverage else (out, None)
         idx = (ys_lens.long() - 1)[:, None, None].expand(-1, 1,
                                                           logits.shape[-1])
-        return F.log_softmax(torch.gather(logits, 1, idx)[:, 0], dim=-1)
+        logp = F.log_softmax(torch.gather(logits, 1, idx)[:, 0], dim=-1)
+        if return_coverage:
+            return logp, probs[:, :, -1, :].mean(dim=1)
+        return logp
 
 
 class BiTransformerDecoder(nn.Module):
@@ -140,9 +164,10 @@ class BiTransformerDecoder(nn.Module):
             r_x = self.right_decoder(memory, memory_lens, r_ys_in, ys_lens)
         return l_x, r_x
 
-    def forward_one_step(self, memory, memory_lens, ys, ys_lens):
+    def forward_one_step(self, memory, memory_lens, ys, ys_lens,
+                         return_coverage: bool = False):
         return self.left_decoder.forward_one_step(memory, memory_lens, ys,
-                                                  ys_lens)
+                                                  ys_lens, return_coverage)
 
 
 def attention_loss(decoder: BiTransformerDecoder, enc, enc_lens, labels,

@@ -1,6 +1,6 @@
 """CTC alignment utilities for long-form CTM timing (port of the JAX
-``ops/ctc_utils.py``: the host helpers, the host aligner ``force_align``
-and the batched CTC Viterbi on the device).
+``ops/ctc_utils.py``: the host helpers, the host aligner ``force_align``,
+``get_blank_id`` and the batched CTC Viterbi on the device).
 
 :func:`viterbi_path_device` is plain PyTorch on the device: a forward loop
 over the T frames of (B, S) tensor ops that keeps int8 backpointers, then a
@@ -102,6 +102,15 @@ def gen_timestamps_from_peak(
             end = min((t + peaks[i + 1] * frame_rate) / 2, t + half)
         times.append((round(start, 3), round(end, 3)))
     return times
+
+
+def get_blank_id(configs: dict, symbol_table: dict) -> int:
+    """The CTC blank: ``ctc_conf.ctc_blank_id``, else the symbol table's
+    ``<blank>``, else 0."""
+    blank_id = configs.get("ctc_conf", {}).get("ctc_blank_id")
+    if blank_id is None:
+        blank_id = symbol_table.get("<blank>", 0)
+    return int(blank_id)
 
 
 def viterbi_path_device(logp: torch.Tensor, lens: torch.Tensor,

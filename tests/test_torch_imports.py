@@ -39,8 +39,9 @@ def test_port_imports_no_jax():
     # the training slice's modules and those of the attention decoder, the
     # short-form CLI, the crash-repro tool, the encoder's attention types,
     # the WeNet converter, Mamba-2, the streaming and serving surface, the
-    # chunk masks, the scoring and load-bench tools and the training CLI
-    # are among those imported
+    # chunk masks, the scoring and load-bench tools, the training CLI, the
+    # RTF harnesses, the searches' biasing and attention beam, and the
+    # align, fbank, CMVN and embedding tools are among those imported
     assert {f"{PKG}.{m}" for m in (
         "ops.ffn", "ops.rnnt", "train.schedulers", "train.train_step",
         "bin.train_bench", "ops.multi_product", "ops.losses",
@@ -53,8 +54,13 @@ def test_port_imports_no_jax():
         "tools.latency_metrics", "utils.masks", "tools.wer",
         "bin.compute_wer", "bin.ws_bench", "frontend.augment",
         "data.augmentations", "train.checkpointing", "train.executor",
-        "train.metrics_logger", "bin.train", "bin.average_model")} <= set(
-            mods)
+        "train.metrics_logger", "bin.train", "bin.average_model",
+        "decode.context_graph", "decode.search", "utils.profiling",
+        "tools.rtf_tables", "bin.encoder_rtf", "bin.decode_rtf",
+        "bin.beam_bench", "bin.scan_op_bench", "ops.ctc_utils", "bin.align",
+        "data.kaldi_io", "bin.compute_fbank_feats",
+        "bin.compute_cmvn_stats", "bin.write_embeddings",
+        "tools.vector_index")} <= set(mods)
 
 
 def test_port_sources_do_not_name_the_jax_package():
@@ -79,6 +85,22 @@ def test_port_sources_do_not_name_the_jax_package():
             with open(path) as f:
                 text = f.read()
             if imp.search(text) or pat.search(text):
+                offenders.append(os.path.relpath(path, ROOT))
+    assert not offenders, offenders
+
+
+def test_port_sources_do_not_call_torch_compile():
+    """A kernel of the port is hand-written: no port source or
+    ``chip_smoke.py`` hands a function to ``torch.compile``."""
+    pat = re.compile(r"torch\.compile\b|torch\._dynamo|\binductor\b")
+    offenders = []
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, dirs, files in os.walk(os.path.join(ROOT, PKG)):
+        dirs[:] = [x for x in dirs if x != "_build"]
+        paths += [os.path.join(d, n) for n in files if n.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            if pat.search(f.read()):
                 offenders.append(os.path.relpath(path, ROOT))
     assert not offenders, offenders
 
