@@ -45,7 +45,7 @@ Phases, each fatal on failure (no phase is skipped or caught):
      pinned_bisect (K7), v7_encoder and pallas_lf (K1), sort_topk (K5) and
      pinned_outer_jit at 4 x 9000 frames (K1-K3), with the counters;
   8. the short-form recognize CLI on the paper's model (the flagship plus
-     the bitransformer attention decoder) at full width: 64 utterances of
+     the bitransformer attention decoder) at full width: 32 utterances of
      2-15 s, batch 16, beam 8, bf16, each of the four modes with the
      counters; then the four modes in f32 on 2 utterances, the card's
      text files against the CPU's, byte for byte;
@@ -84,15 +84,16 @@ Phases, each fatal on failure (no phase is skipped or caught):
      directory, answered by bin/ws_client.py for 3 WAVs, streaming
      (per-connection sessions and a --streaming_batch slot) and whole
      buffer, the texts against a session's and transcribe_batch's;
- 19. the paper's RTF harnesses at the JAX harnesses' defaults, with the
+ 19. the paper's RTF harnesses at the JAX harnesses' shapes, with the
      counters: bin/encoder_rtf.py on the bi-RWKV and MHA bench YAMLs (B4 x
-     9000 frames, bf16; K1 24 a forward on the first) and a sweep of
-     batches 1, 4 x chunks 2000, 9000 aggregated by tools/rtf_tables;
+     9000 frames, bf16, 2 + 10 forwards; K1 24 a forward on the first);
+     then 2 + 2 runs each (their default: 2 + 5) of
      bin/decode_rtf.py on the paper's YAML (B64 x 3000 frames, beam 8) with
      the device beam (K1, K2 and K3) and CTC greedy; bin/beam_bench.py with
-     both merges (K4 once a frame); bin/scan_op_bench.py's components
-     (wall and device ms a frame; K5);
- 20. the data tools on the flagship in f32 and 16 WAVs of 2-15 s, the card
+     both merges (K4 once a frame) and bin/scan_op_bench.py's components
+     (wall and device ms a frame; K5), both at 250 frames a run (their
+     default: 750);
+ 20. the data tools on the flagship in f32 and 4 WAVs of 2-15 s, the card
      against the CPU: compute_cmvn_stats, compute_fbank_feats (whole files
      and segments), align (the CTM byte for byte) and write_embeddings
      --build_index;
@@ -100,6 +101,29 @@ Phases, each fatal on failure (no phase is skipped or caught):
      coverage scorers, on the paper's YAML cut to 2 blocks in f32 (the
      card's tokens against the CPU's), then timed at full width on 8
      utterances at beam 10;
+ 22. the host codec libraries that load (printed after the build): the
+     native C++ helpers (WAV, FLAC, the WER DP; their build failing fails
+     the run), libopus, libmpg123, libmp3lame and the libav shim;
+ 23. recognize_wav on the standard flagship at full width (bf16, beam 8)
+     with a 180 s WAV (2 windows) and its FLAC: TXT and CTM byte for
+     byte, the counters exact; the same audio as Ogg/Opus and MP3 where
+     their libraries load;
+ 24. hub: the flagship's model directory as a tar archive behind a
+     file:// URL, api.load_model by name transcribing on the card the text
+     Model.from_dir gives, the name again and the URL resolving to the
+     same cache directory;
+ 25. tools/export_model: torch.export of the flagship's encoder + CTC at 1
+     x 2051 frames, f32, to bytes and back; 24 pafc_torch::wkv6_fwd nodes,
+     the loaded program equal to eager, K1 24 launches a call;
+ 26. the recipe's run_accuracy_loop at its defaults (make_shard ->
+     compute_cmvn_stats -> recognize_wav + WER at init -> bin/train 20
+     epochs on merged ~20 s utterances -> recognize_wav + WER): WER must
+     fall and reach 0.1;
+ 27. run_impl_matrix on the trained checkpoint (5 cells, one transcript);
+ 28. run_lf_sweep over the loop's long-form episodes as FLACs at chunk
+     sizes 2000 and 4000;
+ 29. run_rtf_sweep: one bin/encoder_rtf subprocess per point, the bi-RWKV
+     and MHA bench YAMLs x chunks 2000 and 9000 at batch 4;
 then one JSON line with every kernel's numbers and, last, the result line.
 K1 is also held and timed at the streaming call (8 x 16 x 8 x 64, the
 state in and out, bf16) in phase 3.
@@ -195,6 +219,51 @@ def device_ms(fn, launches: int = 20, replays: int = 5) -> float:
     return ms
 
 
+def profile_totals(prof, select=()):
+    """Device ms read straight from a torch.profiler trace's raw events:
+    (by kernel name, by GPU-timeline user annotation, and for each host
+    event whose name starts with one of ``select`` the device ms of the
+    kernels launched inside it).  A kernel belongs to the host op whose
+    correlation id it carries, and an op to a host event when it starts
+    inside that event on its thread: the attribution of ``prof.events()``
+    (device_time_total), without its Python event tree, which takes ~20 s
+    to build for one training step."""
+    import bisect
+    import collections
+
+    from torch.autograd import DeviceType
+
+    kernels, spans, own = (collections.Counter() for _ in range(3))
+    host = collections.defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            ms = e.duration_ns() / 1e6
+            if e.is_user_annotation():
+                spans[name] += ms
+            else:
+                kernels[name] += ms
+                own[e.linked_correlation_id()] += ms
+        elif (e.linked_correlation_id() == 0 and not e.is_async()
+              and e.start_thread_id() == e.end_thread_id()):
+            host[e.start_thread_id()].append(
+                (e.start_ns(), e.end_ns(), name, e.correlation_id()))
+    ranged = {p: collections.Counter() for p in select}
+    for evs in host.values():
+        evs.sort()
+        starts = [ev[0] for ev in evs]
+        acc = [0.0]
+        for ev in evs:
+            acc.append(acc[-1] + own.get(ev[3], 0.0))
+        for start, end, name, _ in evs:
+            for prefix in select:
+                if name.startswith(prefix):
+                    hi = bisect.bisect_right(starts, end)
+                    lo = bisect.bisect_left(starts, start)
+                    ranged[prefix][name[len(prefix):]] += acc[hi] - acc[lo]
+    return kernels, spans, ranged
+
+
 def kernel_split(fn, calls: int = 20) -> dict:
     """Device ms per call of each CUDA kernel that ``fn`` launches, by
     kernel name (torch.profiler's CUDA activity over ``calls`` calls)."""
@@ -208,15 +277,12 @@ def kernel_split(fn, calls: int = 20) -> dict:
             fn()
         torch.cuda.synchronize()
     split = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0)
-        if us > 0:
-            name = e.key.replace("(anonymous namespace)::", "")
+    for key, ms in profile_totals(prof)[0].items():
+        if ms > 0:
+            name = key.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0].split("<")[0]
             name = name.split("::")[-1]
-            split[name] = split.get(name, 0.0) + us / 1e3 / calls
+            split[name] = split.get(name, 0.0) + ms / calls
     return split
 
 
@@ -1466,11 +1532,13 @@ def _cmvn_stats(featurize, wavs, lens):
             (1.0 / f.std(dim=(0, 1))).cpu().numpy())
 
 
-def phase_main(model, rng, batch, label="flagship", wkv=24, split=True):
+def phase_main(model, rng, batch, label="flagship", wkv=24, split=True,
+               warm_beam=True):
     """The main path's window batch in bf16 (the flagship, or ``label``'s
-    model launching K1 ``wkv`` times a forward): one warm-up, one timed
-    run; with ``split``, the beam's device time by kernel.  Returns (ok,
-    counts, stages)."""
+    model launching K1 ``wkv`` times a forward): one warm-up (without
+    ``warm_beam``, of the features and the encoder only: the beam's shapes
+    are the flagship's, already warm), one timed run; with ``split``, the
+    beam's device time by kernel.  Returns (ok, counts, stages)."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
@@ -1484,7 +1552,14 @@ def phase_main(model, rng, batch, label="flagship", wkv=24, split=True):
     model = model.to(torch.bfloat16)
 
     t0 = time.perf_counter()
-    decode(model, featurize, wavs, lens)
+    if warm_beam:
+        decode(model, featurize, wavs, lens)
+    else:
+        with torch.no_grad():
+            feats, flens = featurize(wavs, lens)
+            enc, _ = model.forward_encoder(feats.to(torch.bfloat16), flens)
+            model.ctc_logprobs(enc)
+        del feats, enc
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
@@ -1512,7 +1587,7 @@ def phase_main(model, rng, batch, label="flagship", wkv=24, split=True):
     log(f"main path, {label}: {batch} windows x {WINDOW_S} s = {audio_s} "
         f"s audio, "
         f"{frames} encoder frames, beam {BEAM}, bf16; warm-up "
-        f"{warm_s:.2f} s, timed {wall:.3f} s, 1/RTF {audio_s / wall:.1f}, "
+        f"{'' if warm_beam else '(encoder) '}{warm_s:.2f} s, timed {wall:.3f} s, 1/RTF {audio_s / wall:.1f}, "
         f"mean tokens/window {ntok:.1f}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log("stages (s, synchronised): " + json.dumps(
@@ -1552,7 +1627,8 @@ def phase_main_attention(mha_model, rng, batch, flagship_stages):
                  else as_lca(mha_model, LCA_CONTEXT))
         torch.cuda.empty_cache()
         good, counts[label], stages = phase_main(model, rng, batch, label,
-                                                 wkv=0, split=False)
+                                                 wkv=0, split=False,
+                                                 warm_beam=False)
         ok = ok and good
         log(f"main path, {label}: encoder+ctc {stages['encoder+ctc']:.4f} s "
             f"against the flagship's {flagship_stages['encoder+ctc']:.4f} s "
@@ -1811,11 +1887,11 @@ def phase_beam40(paths, rng):
 
 # The training geometry of bin/train_bench.py's defaults: 16 utterances of
 # 1500 feature frames (15 s) with 40 labels, mixed precision, 2 warm-up and
-# 5 timed steps.
+# 3 timed steps (5 until the recording-formats slice).
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_LABELS = 16, 1500, 40
 # the encoder's frames: two valid 3x3 stride-2 convolutions
 TRAIN_ENC_FRAMES = ((TRAIN_FRAMES - 1) // 2 - 1) // 2
-TRAIN_WARMUP, TRAIN_ITERS = 2, 5
+TRAIN_WARMUP, TRAIN_ITERS = 2, 3
 
 
 def _train_config(work: str, name: str, **encoder_overrides) -> str:
@@ -1989,19 +2065,13 @@ def profile_train_step(bench, ranged_calls=()) -> dict:
             h.remove()
         for (mod, n), fn in fns.items():
             setattr(mod, n, fn)
-    events = prof.events()
-    kernels, parts, spans, nodes = (collections.Counter() for _ in range(4))
-    for e in events:
-        ms = e.device_time_total / 1e3
-        if e.name.startswith("fwd "):
-            # the range on the host (device time of its kernels) and its
-            # copy on the device's timeline (the span it covers there)
-            (spans if e.device_type == DeviceType.CUDA else parts)[
-                e.name[4:]] += ms
-        elif e.device_type == DeviceType.CUDA:
-            kernels[e.name] += ms
-        elif e.name.startswith("autograd::engine::evaluate_function: "):
-            nodes[e.name.split(": ", 1)[1]] += ms
+    # each range on the host (device time of its kernels) and its copy on
+    # the device's timeline (the span it covers there)
+    node_tag = "autograd::engine::evaluate_function: "
+    kernels, spans, ranged = profile_totals(prof, ("fwd ", node_tag))
+    parts, nodes = ranged["fwd "], ranged[node_tag]
+    spans = collections.Counter({k[4:]: v for k, v in spans.items()
+                                 if k.startswith("fwd ")})
     busy = sum(kernels.values())
     log(f"training step profile (torch.profiler, one step): wall "
         f"{wall:.1f} ms (profiled), device busy {busy:.1f} ms "
@@ -2054,10 +2124,9 @@ def phase_train(work: str):
 
 def _timed_step(bench, seed: int):
     """One warm-up step, one step timed on the host clock (to a
-    synchronize) and one under torch.profiler: (step ms, device busy ms,
-    device ms of K6's kernels)."""
+    synchronize) and one under torch.profiler's CUDA activity: (step ms,
+    device busy ms, device ms of K6's kernels)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     bench.step_fn(bench.state, bench.batch, seed)
@@ -2066,17 +2135,13 @@ def _timed_step(bench, seed: int):
     bench.step_fn(bench.state, bench.batch, seed)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         bench.step_fn(bench.state, bench.batch, seed)
         torch.cuda.synchronize()
-    busy = k6 = 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            busy += e.device_time_total / 1e3
-            if "ffn_f32_kernel" in e.name or "ffn_tc_kernel" in e.name:
-                k6 += e.device_time_total / 1e3
-    return ms, busy, k6
+    kernels = profile_totals(prof)[0]
+    k6 = sum(v for k, v in kernels.items()
+             if "ffn_f32_kernel" in k or "ffn_tc_kernel" in k)
+    return ms, sum(kernels.values()), k6
 
 
 def phase_train_k6(work: str):
@@ -2254,7 +2319,7 @@ def _v7_two_layers_agree(tool) -> bool:
 
 
 # The short-form CLI's data: seeded GigaSpeech-like utterances of 2-15 s.
-SF_UTTS, SF_BATCH = 64, 16
+SF_UTTS, SF_BATCH = 32, 16
 SF_MODES = ("ctc_greedy_search", "ctc_prefix_beam_search",
             "attention_rescoring", "rnnt_beam_search")
 
@@ -2337,7 +2402,7 @@ def _sf_argv(paths, config, data, out, modes, device, precision):
 def phase_recognize(work: str, rng):
     """The short-form recognize CLI at full width on the paper's model
     (random weights from a seed, blank bias +2.5 on the CTC and transducer
-    heads): 64 utterances of 2-15 s, batch 16, beam 8, bf16, one run per
+    heads): 32 utterances of 2-15 s, batch 16, beam 8, bf16, one run per
     mode with the counters set to 0 just before and read just after; then
     the four modes in f32 on 2 short utterances, the card against the CPU:
     the text files must be identical.  Returns (ok, counts of the
@@ -3188,13 +3253,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
-WS_REQUESTS = 256
+# 64 WAVs at 8 in flight (256 until the recording-formats slice: cut to
+# keep the script inside its time limit)
+WS_REQUESTS = 64
 
 
 def phase_ws_bench(work: str, rng) -> bool:
     """bin/ws_bench against bin/serve.py on localhost: the flagship
     (a transducer, 12 blocks, random weights) served in bf16 from a model
-    directory, 256 WAVs of 2-15 s as whole-buffer requests, 8 in flight
+    directory, 64 WAVs of 2-15 s as whole-buffer requests, 8 in flight
     at a time (the server's micro-batching worker decodes them, CTC greedy),
     scored with ``-t``; its latency lines.  Returns ok."""
     import contextlib
@@ -3267,14 +3334,19 @@ def phase_ws_bench(work: str, rng) -> bool:
 BENCH_RWKV_YAML = "examples/gigaspeech/conf/bench_rwkvbi_ds4k31nc_12le.yaml"
 BENCH_MHA_YAML = "examples/gigaspeech/conf/bench_mha_ds4k31nc_12le.yaml"
 # the JAX harnesses' defaults: encoder_rtf B4 x 9000 frames, 2 + 10 runs;
-# decode_rtf B64 x 3000 frames (749 encoder frames), beam 8, 2 + 5 runs;
-# beam_bench and scan_op_bench B64 x 750 frames, V 5002, 512/512, beam 8,
-# 2 + 5 runs
+# decode_rtf B64 x 3000 frames (749 encoder frames), beam 8; beam_bench and
+# scan_op_bench B64, V 5002, 512/512, beam 8.  To keep the script inside
+# its time limit the last three run 2 + 2 runs (their default 2 + 5;
+# --iters 2), and beam_bench and scan_op_bench 250 frames a run (their
+# default 750; --frames)
 RTF_RUNS = 2 + 10
-DEC_CHUNK, DEC_RUNS = 3000, 2 + 5
+HARNESS_ITERS = 2
+DEC_CHUNK, DEC_RUNS = 3000, 2 + HARNESS_ITERS
 DEC_FRAMES = ((DEC_CHUNK - 1) // 2 - 1) // 2
-BB_FRAMES, BB_RUNS = 750, 2 + 5
-TOOL_WAVS = 16
+BB_FRAMES, BB_RUNS = 250, 2 + HARNESS_ITERS
+# the data tools' WAVs (16 until the recording-formats slice; the CPU side
+# of each card-vs-CPU comparison costs ~1 s a WAV)
+TOOL_WAVS = 4
 
 
 def _captured(fn, argv):
@@ -3305,13 +3377,11 @@ def _rtf_file(path: str) -> dict:
 def phase_encoder_rtf(work: str):
     """bin/encoder_rtf.py at JAX's defaults (B4 x 9000 frames, bf16, 2 + 10
     runs) on the bi-RWKV and the MHA bench YAMLs (K1 24 a forward on the
-    first, none on the second), then a sweep of batches 1, 4 x chunks 2000,
-    9000 on the bi-RWKV YAML aggregated by tools/rtf_tables.  Returns (ok,
-    {yaml: 1/RTF})."""
+    first, none on the second).  The sweep over batches and chunks is the
+    recipe's run_rtf_sweep (phase 29).  Returns (ok, {yaml: 1/RTF})."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.bin import encoder_rtf
-    from paper_accurate_fast_cheap_tpu_torch.tools import rtf_tables
 
     ok, inv = True, {}
     for path, k1 in ((BENCH_RWKV_YAML, 24 * RTF_RUNS), (BENCH_MHA_YAML, 0)):
@@ -3330,30 +3400,12 @@ def phase_encoder_rtf(work: str):
             f"1/RTF {inv[name]:.1f}, peak {rtf['max_vram_mb']} MB, counters "
             f"{json.dumps(counts)}, expected {json.dumps(want)} "
             f"{'ok' if good else 'FAIL'}")
-    d = os.path.join(work, "rtf_sweep")
-    zero_counts()
-    rc = encoder_rtf.main(["--config", BENCH_RWKV_YAML, "--sweep_batches",
-                           "1,4", "--sweep_chunks", "2000,9000",
-                           "--sweep_dir", d])
-    torch.cuda.synchronize()
-    counts, want = read_counts(), _want(wkv6_fwd=4 * 24 * RTF_RUNS)
-    rows = rtf_tables.aggregate([os.path.join(d, f) for f in os.listdir(d)])
-    peaks = {f: _rtf_file(os.path.join(d, f))["max_vram_mb"]
-             for f in sorted(os.listdir(d))}
-    good = (rc == 0 and counts == want and len(rows) == 4
-            and all(r["runs"] == 1 for r in rows))
-    ok = ok and good
-    log(f"encoder_rtf sweep (batches 1,4 x chunks 2000,9000): "
-        + "; ".join(f"B{r['batch']} x {r['chunk']}: 1/RTF "
-                    f"{r['inv_rtf_mean']:.1f}" for r in rows)
-        + f"; peak MB per run {json.dumps(peaks)}, counters "
-        f"{json.dumps(counts)} {'ok' if good else 'FAIL'}")
     return ok, inv
 
 
 def phase_decode_rtf(work: str):
     """bin/decode_rtf.py at JAX's defaults on the paper's YAML (B64 x 3000
-    frames = 749 encoder frames, beam 8, bf16, 2 + 5 runs): the device beam
+    frames = 749 encoder frames, beam 8, bf16, 2 + 2 runs): the device beam
     (K1 24, K2 749 and K3 750 a run), then the CTC greedy search (K1
     only).  Returns (ok, {mode: 1/RTF})."""
     import torch
@@ -3370,7 +3422,8 @@ def phase_decode_rtf(work: str):
         out = os.path.join(work, f"decode_{mode}.rtf")
         zero_counts()
         rc = decode_rtf.main(["--config", PAPER_YAML, "--mode", mode,
-                              "--output", out])
+                              "--output", out, "--iters",
+                              str(HARNESS_ITERS)])
         torch.cuda.synchronize()
         counts = read_counts()
         rtf = _rtf_file(out)
@@ -3386,8 +3439,8 @@ def phase_decode_rtf(work: str):
 
 
 def phase_beam_bench():
-    """bin/beam_bench.py at its defaults (B64 x 750 frames, V 5002, 512 /
-    512, beam 8, 2 + 5 runs) with both merges: the toy joint has no split
+    """bin/beam_bench.py at B64 x BB_FRAMES frames, V 5002, 512 / 512, beam
+    8, 2 + 2 runs, with both merges: the toy joint has no split
     form, so the beam takes K4 once a frame.  Returns (ok, {merge: ms a
     frame})."""
     import torch
@@ -3397,7 +3450,9 @@ def phase_beam_bench():
     ok, ms = True, {}
     for merge in ("sort", "pairwise"):
         zero_counts()
-        rc, out = _captured(beam_bench.main, ["--merge", merge])
+        rc, out = _captured(beam_bench.main, [
+            "--merge", merge, "--iters", str(HARNESS_ITERS), "--frames",
+            str(BB_FRAMES)])
         torch.cuda.synchronize()
         counts, want = read_counts(), _want(fused_topk=BB_FRAMES * BB_RUNS)
         ms[merge] = float(out.split(" ms/frame")[0].rsplit(" ", 1)[1])
@@ -3410,10 +3465,11 @@ def phase_beam_bench():
 
 
 def phase_scan_op_bench():
-    """bin/scan_op_bench.py at its defaults, every component but
+    """bin/scan_op_bench.py at B64 x BB_FRAMES frames, every component but
     approx_topk (a TPU approximate op the port refuses): wall and device
-    ms a frame per component; topk and pallas_topk are K5, 750 launches a
-    run over 2 + 5 runs and one profiled run each.  Returns ok."""
+    ms a frame per component; topk and pallas_topk are K5, BB_FRAMES
+    launches a run over 2 + 2 runs and one profiled run each.  Returns
+    ok."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.bin import scan_op_bench
@@ -3421,13 +3477,16 @@ def phase_scan_op_bench():
     names = ["noop", "joint", "fuse", "topk", "lax_topk", "pallas_topk",
              "merge", "gather", "pred", "hypbuf", "bookkeep"]
     zero_counts()
-    rc, out = _captured(scan_op_bench.main, ["--only", ",".join(names)])
+    rc, out = _captured(scan_op_bench.main, [
+        "--only", ",".join(names), "--iters", str(HARNESS_ITERS),
+        "--frames", str(BB_FRAMES)])
     torch.cuda.synchronize()
     counts = read_counts()
     want = _want(topk=2 * BB_FRAMES * (BB_RUNS + 1))
     good = (rc == 0 and counts == want
             and all(f"{n:12s}: " in out for n in names))
-    log(f"scan_op_bench (B64 x 750, beam 8): counters {json.dumps(counts)}, "
+    log(f"scan_op_bench (B64 x {BB_FRAMES}, beam 8): counters "
+        f"{json.dumps(counts)}, "
         f"expected {json.dumps(want)} {'ok' if good else 'FAIL'}")
     return good
 
@@ -3713,6 +3772,414 @@ def phase_attention_search(rng) -> bool:
     return ok
 
 
+# The slice of the recording formats, the hub, export and the recipe's
+# drivers (phases 22-29): a few-minute CLI decode per container, the hub
+# through a file:// archive, the exported encoder + CTC against eager, and
+# the ported example drivers at their defaults.
+FMT_WINDOWS = 2          # the formats phase's WAV: 2 CLI windows (180 s)
+LOOP_LF_CHUNKS = "2000,4000"
+# the accuracy loop's decode weights (its run_accuracy_loop defaults)
+LOOP_WEIGHTS = ("--ctc_weight", "0.1", "--transducer_weight", "0.9")
+RTF_SWEEP_MODELS = "rwkv_bi_12L,mha_12L"
+RTF_SWEEP_CHUNKS = "2000,9000"
+
+
+def phase_codec_libs() -> dict:
+    """Which host codec libraries load: the native C++ helpers (WAV, FLAC,
+    the WER DP; their build failing fails the run), libopus, libmpg123 and
+    libmp3lame (ctypes), and the libav shim (m4a).  Returns {name: ok}."""
+    from paper_accurate_fast_cheap_tpu_torch import native
+    from paper_accurate_fast_cheap_tpu_torch.data import codecs
+
+    t0 = time.perf_counter()
+    libs, why = {}, {}
+    for name, load in (("native", native.lib), ("libopus", codecs._opus),
+                       ("libmpg123", codecs._mpg123),
+                       ("libmp3lame", lambda: codecs.encode_mp3(
+                           np.zeros(1152, np.float32), 16000)),
+                       ("libav", native.av_lib)):
+        try:
+            load()
+            libs[name] = True
+        except Exception as e:  # reported: a missing library is a finding
+            libs[name] = False
+            why[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    if libs["libav"]:
+        v = int(native.av_lib().pafc_av_version())
+        why["libav"] = f"libavformat {v >> 16}.{(v >> 8) & 255}.{v & 255}"
+    log(f"codec libraries (built or loaded in {time.perf_counter() - t0:.1f}"
+        f" s): {json.dumps(libs)} {json.dumps(why)}")
+    return libs
+
+
+def _cli_want(n_samples: int, batch: int) -> dict:
+    """The counters of one recognize_wav run at CLI_CHUNK on a waveform of
+    ``n_samples``: every window is featurized at full width, so each batch
+    runs the encoder once (K1 24) and the beam CLI_FRAMES frames (K2) with
+    CLI_FRAMES + 1 predictor steps (K3)."""
+    from paper_accurate_fast_cheap_tpu_torch.bin import recognize_wav
+
+    n = sum(1 for _ in recognize_wav.window_batches(n_samples, CLI_CHUNK,
+                                                    batch))
+    return _want(wkv6_fwd=24 * n, joint_topk=CLI_FRAMES * n,
+                 lstm_step=(CLI_FRAMES + 1) * n)
+
+
+def _cli_file(paths, audio: str, out: str, batch: int):
+    """recognize_wav on the standard flagship (bf16, beam 8) for one audio
+    file, counters zeroed before and read after.  Returns (rc, counts,
+    wall s, TXT bytes, CTM bytes)."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import recognize_wav
+
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = recognize_wav.main([
+        "--config", paths["standard.json"],
+        "--checkpoint", paths["standard.pt"], "--wav", audio,
+        "--output_dir", out, "--mode", "rnnt_beam_search",
+        "--batch_size", str(batch), "--chunk_size", str(CLI_CHUNK),
+        "--beam_size", str(BEAM), "--precision", "bf16"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    stem = os.path.splitext(os.path.basename(audio))[0]
+    with open(os.path.join(out, stem + ".txt"), "rb") as f:
+        txt = f.read()
+    with open(os.path.join(out, stem + ".ctm"), "rb") as f:
+        ctm = f.read()
+    return rc, counts, wall, txt, ctm
+
+
+def phase_formats_cli(work: str, rng, paths, libs: dict, card: str) -> bool:
+    """The long-form CLI on the standard flagship at full width with a
+    180 s WAV (2 windows, one batch) and its FLAC: the TXT and CTM byte
+    for byte, the counters exact; then the same audio as Ogg/Opus and MP3
+    where their libraries load (a failure of one that loads fails the
+    run), counters from the decoded length."""
+    from paper_accurate_fast_cheap_tpu_torch.data import audio, codecs, flac
+
+    d = os.path.join(work, "formats")
+    os.makedirs(d)
+    n = (FMT_WINDOWS * CLI_CHUNK - 1) * 160 + 400
+    pcm = np.clip(rng.randn(n) * 0.1 * 32768, -32768, 32767).astype(np.int16)
+    files = {"wav": os.path.join(d, "wav", "lf.wav"),
+             "flac": os.path.join(d, "flac", "lf.flac")}
+    for p in files.values():
+        os.makedirs(os.path.dirname(p))
+    _write_wav(files["wav"], pcm)
+    t0 = time.perf_counter()
+    with open(files["flac"], "wb") as f:
+        f.write(flac.encode_flac(pcm, 16000))
+    enc_s = {"flac": time.perf_counter() - t0}
+    x = pcm.astype(np.float32) / 32768.0
+    if libs["libopus"]:
+        files["opus"] = os.path.join(d, "opus", "lf.opus")
+        os.makedirs(os.path.dirname(files["opus"]))
+        t0 = time.perf_counter()
+        with open(files["opus"], "wb") as f:
+            f.write(codecs.encode_ogg_opus(x, 16000))
+        enc_s["opus"] = time.perf_counter() - t0
+    if libs["libmpg123"] and libs["libmp3lame"]:
+        files["mp3"] = os.path.join(d, "mp3", "lf.mp3")
+        os.makedirs(os.path.dirname(files["mp3"]))
+        t0 = time.perf_counter()
+        with open(files["mp3"], "wb") as f:
+            f.write(codecs.encode_mp3(x, 16000))
+        enc_s["mp3"] = time.perf_counter() - t0
+    log(f"formats: {n / 16000:.2f} s of PCM16 as "
+        + ", ".join(f"{k} {os.path.getsize(p)} bytes" for k, p in
+                    files.items())
+        + f"; encoded in {json.dumps({k: round(v, 2) for k, v in enc_s.items()})} s")
+    ok, res = True, {}
+    for fmt, path in files.items():
+        t0 = time.perf_counter()
+        with open(path, "rb") as f:
+            wav, sr = audio.resample_to(*audio.read_audio_bytes(f.read()))
+        read_s = time.perf_counter() - t0
+        want = _cli_want(len(wav), FMT_WINDOWS)
+        rc, counts, wall, txt, ctm = _cli_file(paths, path,
+                                               os.path.dirname(path),
+                                               FMT_WINDOWS)
+        ctm_ok, n_ctm = check_ctm(os.path.join(os.path.dirname(path),
+                                               "lf.ctm"), "lf", len(wav) / sr)
+        good = (rc == 0 and counts == want and len(txt.split()) > 0
+                and ctm_ok)
+        res[fmt] = (txt, ctm)
+        ok = ok and good
+        with open(os.path.join(os.path.dirname(path), "lf.rtf")) as f:
+            rtf = f.readline().strip()
+        log(f"formats CLI {fmt} [{card}]: read {read_s:.3f} s "
+            f"({len(wav)} samples at {sr} Hz), recognize_wav.main "
+            f"{wall:.2f} s (model load included; {rtf}), counters "
+            f"{json.dumps(counts)}, expected {json.dumps(want)}; TXT "
+            f"{len(txt.split())} words, CTM {n_ctm} lines well formed "
+            f"{ctm_ok} {'ok' if good else 'FAIL'}")
+    same = res["flac"] == res["wav"]
+    ok = ok and same
+    log(f"formats CLI: the FLAC's TXT and CTM equal the WAV's byte for byte: "
+        f"{same}; lossy formats' TXT words "
+        + json.dumps({k: len(v[0].split()) for k, v in res.items()
+                      if k in ("opus", "mp3")})
+        + f" {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_hub(work: str, paths) -> bool:
+    """hub: the standard flagship's model directory (train.yaml, units,
+    CMVN, epoch_0000.pt in f32) packed as a tar archive (uncompressed:
+    gzip of the 414 MB checkpoint takes ~27 s here; the hub opens either),
+    registered by name with a file:// URL ($PAFC_HOME in the work
+    directory); api.load_model by that name downloads and unpacks it, its
+    transcript of a 20 s WAV on the card (rnnt_beam_search, K1 24) equals
+    Model.from_dir's on the local directory, and the name again and the
+    URL resolve to the same cache directory without a second download."""
+    import tarfile
+
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch import api, hub
+
+    os.environ["PAFC_HOME"] = os.path.join(work, "pafc_home")
+    local = os.path.join(work, "hub_model")
+    os.makedirs(local)
+    with open(paths["standard.json"]) as f:
+        config = json.load(f)
+    for key, conf, field in (("units", "tokenizer_conf",
+                              "symbol_table_path"),
+                             ("cmvn", "cmvn_conf", "cmvn_file")):
+        src = config[conf][field]
+        shutil.copy(src, os.path.join(local, os.path.basename(src)))
+        config[conf] = dict(config[conf], **{field: os.path.basename(src)})
+    with open(os.path.join(local, "train.yaml"), "w") as f:
+        json.dump(config, f)
+    shutil.copy(paths["standard.pt"], os.path.join(local, "epoch_0000.pt"))
+    t0 = time.perf_counter()
+    archive = os.path.join(work, "flagship_hub.tar")
+    with tarfile.open(archive, "w") as tf:
+        for name in sorted(os.listdir(local)):
+            tf.add(os.path.join(local, name), arcname=f"flagship/{name}")
+    pack_s = time.perf_counter() - t0
+    pcm = _read_pcm(paths["wav"])[: 20 * 16000]
+    wav = pcm.astype(np.float32) / 32768.0
+    texts, ok = {}, True
+    hub.register_model("flagship_hub", f"file://{archive}")
+    try:
+        for how, target in (("from_dir", None), ("name", "flagship_hub")):
+            t0 = time.perf_counter()
+            m = (api.Model.from_dir(local) if target is None
+                 else api.load_model(target))
+            load_s = time.perf_counter() - t0
+            zero_counts()
+            t0 = time.perf_counter()
+            texts[how] = m.transcribe(wav, mode="rnnt_beam_search")["text"]
+            torch.cuda.synchronize()
+            counts = read_counts()
+            good = (counts["wkv6_fwd"] == 24 and counts["joint_topk"] > 0
+                    and next(m.model.parameters()).is_cuda)
+            ok = ok and good
+            log(f"hub {how}: load {load_s:.2f} s, transcribe "
+                f"{time.perf_counter() - t0:.2f} s, {len(texts[how].split())}"
+                f" words, counters {json.dumps(counts)} "
+                f"{'ok' if good else 'FAIL'}")
+            del m
+        # the name again and the URL (whose archive name keys the same
+        # directory) resolve to the cache, without a second download
+        t0 = time.perf_counter()
+        again = (hub.resolve("flagship_hub"),
+                 hub.resolve(f"file://{archive}"))
+        resolve_s = time.perf_counter() - t0
+    finally:
+        hub.Assets.pop("flagship_hub", None)
+    same = len(set(texts.values())) == 1 and bool(texts["from_dir"])
+    cached = sorted(os.listdir(os.environ["PAFC_HOME"]))
+    home = os.path.join(os.environ["PAFC_HOME"], "flagship_hub")
+    ok = (ok and same and cached == ["flagship_hub"]
+          and again == (home, home))
+    log(f"hub: archive {os.path.getsize(archive) / 1e6:.1f} MB packed in "
+        f"{pack_s:.2f} s; cache {cached}; the name again and the URL "
+        f"resolve there in {resolve_s:.3f} s; the texts equal: {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+EXPORT_FRAMES = 2051
+
+
+def phase_export() -> bool:
+    """tools/export_model on the standard flagship at full width, f32:
+    torch.export of encoder + CTC at 1 x 2051 x 80, written to bytes and
+    loaded back; the graph holds K1 as pafc_torch::wkv6_fwd (24 nodes),
+    the loaded program's log-probs equal eager's, and each call launches
+    K1 24 times, as eager does."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.tools import export_model
+
+    model = build_model(seed=1, label="flagship (export, f32)").eval()
+    t0 = time.perf_counter()
+    blob = export_model.export_encoder_ctc(model, frames=EXPORT_FRAMES)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn = export_model.load_exported(blob)
+    load_s = time.perf_counter() - t0
+    n_op = export_model.graph_ops(fn).count("pafc_torch.wkv6_fwd.default")
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(61)
+    feats = torch.randn(1, EXPORT_FRAMES, 80, device=dev, generator=g)
+    lens = torch.tensor([EXPORT_FRAMES], dtype=torch.int32, device=dev)
+    counts = {}
+    with torch.no_grad():
+        zero_counts()
+        logp, elens = fn(feats, lens)
+        torch.cuda.synchronize()
+        counts["exported"] = read_counts()
+        zero_counts()
+        enc, e_lens = model.forward_encoder(feats, lens)
+        eager = model.ctc_logprobs(enc)
+        torch.cuda.synchronize()
+        counts["eager"] = read_counts()
+        err = float((logp - eager).abs().max())
+        ms = {"exported": cuda_time_ms(lambda: fn(feats, lens), 5),
+              "eager": cuda_time_ms(lambda: model.ctc_logprobs(
+                  model.forward_encoder(feats, lens)[0]), 5)}
+    want = _want(wkv6_fwd=24)
+    good = (n_op == 24 and counts["exported"] == want
+            and counts["eager"] == want and bool(torch.equal(elens, e_lens))
+            and tuple(logp.shape) == (
+                1, ((EXPORT_FRAMES - 1) // 2 - 1) // 2, VOCAB)
+            and bool(torch.isfinite(logp).all()) and err <= 1e-5)
+    log(f"export (flagship f32, 1 x {EXPORT_FRAMES}): torch.export "
+        f"{export_s:.1f} s, {len(blob) / 1e6:.1f} MB, load {load_s:.1f} s, "
+        f"wkv6_fwd nodes {n_op}; log-probs {tuple(logp.shape)} max |exported"
+        f" - eager| {err:.3e}; ms a call exported {ms['exported']:.3f}, "
+        f"eager {ms['eager']:.3f}; counters a call {json.dumps(counts)}, "
+        f"expected {json.dumps(want)} {'ok' if good else 'FAIL'}")
+    return good
+
+
+def _driver(mod: str, argv):
+    """Run a recipe driver's main in this process, its stdout echoed;
+    returns (rc, the JSON object of its last stdout line or None, wall s,
+    counters)."""
+    import importlib
+
+    import torch
+
+    fn = importlib.import_module(
+        "paper_accurate_fast_cheap_tpu_torch.examples.gigaspeech.local."
+        + mod).main
+    zero_counts()
+    t0 = time.perf_counter()
+    rc, out = _captured(fn, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    last = out.strip().splitlines()[-1] if out.strip() else ""
+    try:
+        res = json.loads(last)
+    except ValueError:
+        res = None
+    return rc, res, wall, read_counts()
+
+
+def phase_accuracy_loop(work: str):
+    """run_accuracy_loop at its defaults on the card: 384 tone-word
+    utterances through make_shard and compute_cmvn_stats, the init
+    checkpoint decoded by recognize_wav (rnnt_beam_search, beam 8, CTC 0.1
+    / transducer 0.9, 20 s windows) and scored, bin/train for 20 epochs
+    on ~20 s merged utterances, the trained checkpoint decoded and scored:
+    WER must fall and reach 0.1.  Returns (ok, its directory)."""
+    d = os.path.join(work, "acc_loop")
+    rc, res, wall, counts = _driver("run_accuracy_loop", ["--out", d])
+    good = (rc == 0 and res is not None and res["improved"]
+            and res["wer_trained"] <= 0.1
+            and res["wer_trained"] < res["wer_init"]
+            and counts["wkv6_fwd"] > 0 and counts["joint_topk"] > 0
+            and counts["lstm_step"] > 0)
+    log(f"accuracy loop: {wall:.1f} s, WER init {res and res['wer_init']} "
+        f"-> trained {res and res['wer_trained']} (target 0.1), train "
+        f"{res and res['train_s']} s, decodes {res and res['decode_s']} s, "
+        f"counters {json.dumps(counts)} {'ok' if good else 'FAIL'}")
+    return good, d
+
+
+def phase_impl_matrix(loop_dir: str) -> bool:
+    """run_impl_matrix on the accuracy loop's trained checkpoint at the
+    loop's decode weights: beam merge pairwise/sort x align_max_tokens
+    0/256, plus the JAX CLI's TPU axes (--wkv_impl chunked --fuse off):
+    every TXT the same."""
+    rc, res, wall, counts = _driver("run_impl_matrix", [
+        "--fixture", loop_dir, *LOOP_WEIGHTS])
+    good = (rc == 0 and res is not None and res["hard_contract_ok"]
+            and res["distinct_transcripts"] == 1 and res["words"] > 0)
+    log(f"impl matrix: {wall:.1f} s, {res and res['cells']} cells, "
+        f"distinct transcripts {res and res['distinct_transcripts']}, CTMs "
+        f"identical {res and res['ctm_identical']}, {res and res['words']} "
+        f"words, counters {json.dumps(counts)} {'ok' if good else 'FAIL'}")
+    return good
+
+
+def phase_lf_sweep(work: str, loop_dir: str) -> bool:
+    """run_lf_sweep over the accuracy loop's long-form episodes as FLACs
+    (PCM16 of its WAVs) at chunk sizes 2000 and 4000 with its trained
+    checkpoint and decode weights: a summary row per chunk size, every
+    file scored, WER <= 0.1 at the loop's own chunk size."""
+    from paper_accurate_fast_cheap_tpu_torch.data import flac
+    from paper_accurate_fast_cheap_tpu_torch.examples.gigaspeech.local \
+        import run_impl_matrix
+
+    src = os.path.join(loop_dir, "longform")
+    d = os.path.join(work, "lf_flac")
+    os.makedirs(d)
+    names = sorted(f[:-4] for f in os.listdir(src) if f.endswith(".wav"))
+    for name in names:
+        pcm = _read_pcm(os.path.join(src, name + ".wav"))
+        with open(os.path.join(d, name + ".flac"), "wb") as f:
+            f.write(flac.encode_flac(pcm, 16000))
+        shutil.copy(os.path.join(src, name + ".ref_txt"), d)
+    out = os.path.join(work, "lf_sweep")
+    rc, _, wall, counts = _driver("run_lf_sweep", [
+        "--config", os.path.join(loop_dir, "config.yaml"),
+        "--checkpoint", run_impl_matrix.newest_epoch(
+            os.path.join(loop_dir, "exp")),
+        "--wav_dir", d, "--out_dir", out, "--chunk_sizes", LOOP_LF_CHUNKS,
+        *LOOP_WEIGHTS])
+    with open(os.path.join(out, "summary.txt")) as f:
+        rows = f.read().splitlines()
+    # the loop's own window (2000 frames) on the same PCM16 as FLAC: the
+    # trained model's WER stays within the loop's target
+    good = (rc == 0 and len(rows) == 1 + len(LOOP_LF_CHUNKS.split(","))
+            and all(r.split()[6] == str(len(names)) for r in rows[1:])
+            and float(rows[1].split()[1]) <= 0.1
+            and counts["wkv6_fwd"] > 0)
+    log(f"LF sweep over {len(names)} FLACs: {wall:.1f} s, summary "
+        f"{rows}, counters {json.dumps(counts)} {'ok' if good else 'FAIL'}")
+    return good
+
+
+def phase_rtf_sweep(work: str) -> bool:
+    """run_rtf_sweep: one bin/encoder_rtf subprocess per (model, batch 4,
+    chunk) for the bi-RWKV and MHA bench YAMLs x chunks 2000 and 9000
+    (bf16, 2 + 10 forwards each), tabled by tools/rtf_tables.  The
+    subprocesses reuse the kernels built in _build/ (their .rtf files say
+    kernels_cached yes)."""
+    out = os.path.join(work, "rtf_sweep")
+    rc, _, wall, _ = _driver("run_rtf_sweep", [
+        "--out_dir", out, "--models", RTF_SWEEP_MODELS, "--batches", "4",
+        "--chunks", RTF_SWEEP_CHUNKS, "--timeout", "300"])
+    rtfs = sorted(f for f in os.listdir(out) if f.endswith(".rtf"))
+    n = len(RTF_SWEEP_MODELS.split(",")) * len(RTF_SWEEP_CHUNKS.split(","))
+    cached = [_rtf_file(os.path.join(out, f))["kernels_cached"]
+              for f in rtfs]
+    good = rc == 0 and len(rtfs) == n and cached == ["yes"] * n
+    with open(os.path.join(out, "summary.md")) as f:
+        table = [ln for ln in f.read().splitlines() if ln.startswith("| ")]
+    log(f"RTF sweep ({n} subprocesses): {wall:.1f} s; kernels cached "
+        f"{cached}; " + " ; ".join(table[1:]) + f" {'ok' if good else 'FAIL'}")
+    return good
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=32)
@@ -3730,8 +4197,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(label: str) -> None:
+        now = time.perf_counter()
+        log(f"[phase time] {label}: {now - laps[-1]:.1f} s (total "
+            f"{now - t_start:.1f} s)")
+        laps.append(now)
+
     card = phase_device()
     tensor_cores = phase_build()
+    libs = phase_codec_libs()
+    lap("device, build, codec libraries")
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     rows, ok = [], True
@@ -3747,6 +4224,9 @@ def main() -> int:
                       "HMMA in a bf16 instance of K1")
     if not check_wkv_backward(g):
         failed.append("K1 backward vs autograd")
+    if not libs["native"]:
+        failed.append("the native C++ helpers (WAV, FLAC, WER) did not build")
+    lap("kernels vs plain")
     if args.kernels_only:
         log("chip_smoke --kernels-only: "
             + (f"FAILED: {', '.join(failed)}" if failed else "every check ok"))
@@ -3768,6 +4248,7 @@ def main() -> int:
             failed.append("card vs CPU reference")
         if not phase_search_reference(model, np.random.RandomState(30)):
             failed.append("search reference (host beam, greedy)")
+        lap("flagship references")
         hat_model = hat_model.cpu()
         # the attention baselines and direction dropout draw their own data
         att_rng = np.random.RandomState(9)
@@ -3778,6 +4259,7 @@ def main() -> int:
                                          np.random.RandomState(31),
                                          what="chunk-masked reference"):
             failed.append("chunk-masked reference")
+        lap("attention references")
         if args.batch != 32:
             log(f"main path cut: batch {args.batch} (flagship point: 32 x "
                 f"{WINDOW_S} s)")
@@ -3789,6 +4271,7 @@ def main() -> int:
                                                   args.batch, stages)
         if not att_ok:
             failed.append("main path, MHA and LCA")
+        lap("main paths")
         del mha_model
         torch.cuda.empty_cache()
         cli_ok, hat_counts = phase_cli(paths, card)
@@ -3800,12 +4283,15 @@ def main() -> int:
             failed.append(f"recognize_wav at beam {BEAM_WIDE}")
         if not phase_cli_sort(paths, card):
             failed.append("recognize_wav --beam_merge sort")
+        lap("recognize_wav CLI")
         tool_ok, k7_launches = phase_tool()
         if not tool_ok:
             failed.append("crash-repro tool cases")
+        lap("crash-repro tool")
         sf_ok, sf_counts = phase_recognize(work, rng)
         if not sf_ok:
             failed.append("short-form recognize CLI")
+        lap("short-form CLI")
         if not phase_train_reference(CONFIG, "flagship"):
             failed.append("training reference")
         if not phase_train_reference(_small_paper_config(),
@@ -3816,6 +4302,7 @@ def main() -> int:
                                      f"{MHA_SF_YAML}, 2 encoder and 1 + 1 "
                                      "decoder blocks"):
             failed.append("training reference, MHA")
+        lap("training references")
         train_ok, train_counts = phase_train(work)
         if not train_ok:
             failed.append("training")
@@ -3825,9 +4312,11 @@ def main() -> int:
         paper_ok, paper_counts = phase_train_paper(work)
         if not paper_ok:
             failed.append("training, the paper's config")
+        lap("train_bench (flagship, K6, paper)")
         tc_ok, _ = phase_train_cli(work, np.random.RandomState(32))
         if not tc_ok:
             failed.append("training CLI")
+        lap("training CLI")
         # the Mamba-2 encoders and streaming
         if not phase_attention_reference(mamba_reference_models(),
                                          np.random.RandomState(13),
@@ -3837,30 +4326,35 @@ def main() -> int:
         if not phase_streaming_reference(s_models,
                                          np.random.RandomState(14)):
             failed.append("streaming reference")
+        lap("Mamba-2 and streaming references")
         torch.cuda.empty_cache()
         mb_ok, mb_counts, mb_stages = phase_main(
             build_model(config=_yaml(MAMBABI_YAML), seed=12,
                         label="Mamba-2 bi (mambabi YAML)"),
             np.random.RandomState(15), args.batch, "Mamba-2 bi", wkv=0,
-            split=False)
+            split=False, warm_beam=False)
         log(f"main path, Mamba-2 bi: encoder+ctc "
             f"{mb_stages['encoder+ctc']:.4f} s against the flagship's "
             f"{stages['encoder+ctc']:.4f} s {'ok' if mb_ok else 'FAIL'}")
         if not mb_ok:
             failed.append("main path, Mamba-2 bi")
+        lap("main path, Mamba-2 bi")
         torch.cuda.empty_cache()
         if not phase_train_mamba(work):
             failed.append("training, the bi Mamba-2 YAML")
+        lap("train_bench, Mamba-2")
         torch.cuda.empty_cache()
         sb_ok, _ = phase_streaming_bench(work)
         if not sb_ok:
             failed.append("streaming_bench")
+        lap("streaming_bench")
         rwkv_model, rwkv_config = s_models["uni-RWKV (streaming YAML)"]
         if not phase_server(work, np.random.RandomState(16), rwkv_model,
                             rwkv_config):
             failed.append("websocket server")
         if not phase_ws_bench(work, np.random.RandomState(33)):
             failed.append("ws_bench")
+        lap("server and ws_bench")
         # the RTF harnesses, the attention beam search and the data tools
         torch.cuda.empty_cache()
         if not phase_encoder_rtf(work)[0]:
@@ -3871,10 +4365,37 @@ def main() -> int:
             failed.append("beam_bench")
         if not phase_scan_op_bench():
             failed.append("scan_op_bench")
+        lap("RTF harnesses")
         if not phase_data_tools(work, np.random.RandomState(34)):
             failed.append("data tools (align, fbank, CMVN, embeddings)")
         if not phase_attention_search(np.random.RandomState(35)):
             failed.append("attention beam search")
+        lap("data tools, attention beam")
+        # recording formats, hub, export and the recipe's drivers
+        torch.cuda.empty_cache()
+        if not phase_formats_cli(work, np.random.RandomState(36), paths,
+                                 libs, card):
+            failed.append("recognize_wav on FLAC, Opus and MP3")
+        lap("formats CLI")
+        if not phase_hub(work, paths):
+            failed.append("hub")
+        lap("hub")
+        if not phase_export():
+            failed.append("export")
+        lap("export")
+        torch.cuda.empty_cache()
+        loop_ok, loop_dir = phase_accuracy_loop(work)
+        if not loop_ok:
+            failed.append("accuracy loop")
+        lap("accuracy loop")
+        if not phase_impl_matrix(loop_dir):
+            failed.append("impl matrix")
+        if not phase_lf_sweep(work, loop_dir):
+            failed.append("LF sweep")
+        lap("impl matrix, LF sweep")
+        if not phase_rtf_sweep(work):
+            failed.append("RTF sweep")
+        lap("RTF sweep")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failed:

@@ -9,7 +9,9 @@ WeNet checkpoint).  The checkpoint is the one given, else the last of
 ``checkpointing.list_checkpoints`` in name order, as JAX picks.  Paths in
 ``train.yaml`` that do not exist as given are looked up in the directory.
 The model runs on ``cuda`` unless the caller passes ``device="cpu"``.  A
-hub name or URL is not ported (ROADMAP Queue 1, item 15).
+registered hub name or an archive URL resolves to a cached model directory
+through ``hub.resolve`` (the port's cache root: ``~/.pafc_torch``, or
+``$PAFC_HOME``).
 """
 from __future__ import annotations
 
@@ -72,18 +74,17 @@ class Model:
     @classmethod
     def from_dir(cls, model_dir: str, checkpoint: Optional[str] = None,
                  precision: str = "fp32", device=None):
-        """Load from a local model directory (``train.yaml`` and its last
-        checkpoint unless ``checkpoint`` names one)."""
+        """Load from a model directory (``train.yaml`` and its last
+        checkpoint unless ``checkpoint`` names one), a registered hub name
+        or an archive URL (``hub.resolve``)."""
+        from paper_accurate_fast_cheap_tpu_torch import hub
         from paper_accurate_fast_cheap_tpu_torch.bin.recognize import (
             build_decode_assets)
         from paper_accurate_fast_cheap_tpu_torch.utils.config import (
             load_config)
 
-        if "://" in model_dir or not os.path.isdir(model_dir):
-            raise NotImplementedError(
-                f"{model_dir!r} is not a local model directory: hub names "
-                "and URLs wait for ROADMAP Queue 1, item 15")
         dev = resolve_device(device)
+        model_dir = hub.resolve(model_dir)
         config = _in_dir(load_config(os.path.join(model_dir, "train.yaml")),
                          model_dir)
         checkpoint = checkpoint or _last_checkpoint(model_dir)
@@ -152,6 +153,7 @@ class Model:
 
 def load_model(model_dir: str, checkpoint: Optional[str] = None,
                precision: str = "fp32", device=None) -> Model:
-    """A local model directory (hub names and URLs raise)."""
+    """A local model directory, a registered hub name, or a direct archive
+    URL (`wenet/cli/model.py:load_model` + `cli/hub.py`)."""
     return Model.from_dir(model_dir, checkpoint, precision=precision,
                           device=device)

@@ -1,10 +1,11 @@
-"""Audio file reading for the long-form CLI (port of the RIFF/WAV part of
-the JAX ``data/pipeline.py`` readers, with the ``resample_poly`` step of its
-``bin/recognize_wav.py``).
+"""Audio file reading (port of the JAX ``data/pipeline.py`` readers, with the
+``resample_poly`` step of its ``bin/recognize_wav.py``).
 
-Only RIFF/WAV is read, by the standard library's ``wave`` parser; FLAC,
-Ogg/Opus, MP3 and m4a are not ported yet (ROADMAP Queue 1, item 15) and
-raise.
+``read_audio_bytes`` sniffs the container as the JAX package does: FLAC
+(``data/flac.py``, the native decoder), RIFF/WAV (native ``parse_wav``;
+the standard library's ``wave`` for what it refuses), Ogg/Opus and MP3
+(``data/codecs.py``, the system libraries) and m4a (the libav shim).  Mono
+is the channel mean.  Another container raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -15,7 +16,13 @@ import numpy as np
 
 
 def read_wav_bytes(data: bytes):
-    """RIFF/WAV bytes -> (mono float32 samples in [-1, 1], sample rate)."""
+    """RIFF/WAV bytes -> (mono float32 samples in [-1, 1], sample rate),
+    through the native RIFF parser (PCM8/16/32)."""
+    from paper_accurate_fast_cheap_tpu_torch import native
+
+    out = native.parse_wav(data)
+    if out is not None:
+        return out
     with wave.open(io.BytesIO(data)) as w:
         sr = w.getframerate()
         n = w.getnframes()
@@ -35,13 +42,32 @@ def read_wav_bytes(data: bytes):
     return arr, sr
 
 
-def read_audio_bytes(data: bytes):
+def read_audio_bytes(data: bytes, ext=None):
     """Sniff the container and decode to (mono float32, sample rate)."""
+    if data[:4] == b"fLaC":
+        from paper_accurate_fast_cheap_tpu_torch.data import flac
+
+        out = flac.decode_flac(data)
+        if out is None:
+            raise ValueError("flac decode failed")
+        x, sr = out
+        if x.ndim == 2:
+            x = x.mean(axis=1)
+        return x, sr
     if data[:4] == b"RIFF":
         return read_wav_bytes(data)
-    raise NotImplementedError(
-        "the port reads RIFF/WAV only; FLAC, Ogg/Opus, MP3 and m4a are not "
-        "ported yet (ROADMAP Queue 1, item 15)")
+    from paper_accurate_fast_cheap_tpu_torch.data import codecs
+
+    if data[:4] == b"OggS":
+        return codecs.decode_ogg_opus(data)
+    if codecs.sniff_mp3(data):
+        return codecs.decode_mp3(data)
+    if codecs.sniff_mp4(data):
+        return codecs.decode_m4a(data)
+    raise ValueError(
+        f"unsupported audio format (ext={ext!r}); supported: wav, flac, "
+        "ogg/opus, mp3, m4a"
+    )
 
 
 def resample_to(wav: np.ndarray, sr: int, target: int = 16000):

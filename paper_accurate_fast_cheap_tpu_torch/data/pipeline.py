@@ -3,8 +3,9 @@ batches (port of the JAX ``data/pipeline.py``, every stage).
 
 Stages in the JAX package's order (``build_dataset``): the source (``raw``
 JSON lines, ``shard`` tar lists, ``zip_shard`` zip lists, partitioned by
-rank), ``decode_wav`` (RIFF/WAV through ``data/audio.py``; other
-containers raise, ROADMAP Queue 1 item 15), utterance merging, the
+rank), ``decode_wav`` (WAV, FLAC, Ogg/Opus, MP3 and m4a through
+``data/audio.py``; a sample that does not decode is skipped with a
+warning), utterance merging, the
 speaker, deep-biasing, language, special-token, yeah/okay, wordy and
 key-exclusion stages, ``resample``, ``speed_perturb`` (scipy's
 ``resample_poly``, as JAX), ``tokenize``, ``filter_samples``, the category
@@ -134,7 +135,7 @@ def _decode_one(s: Dict) -> Dict:
     else:
         with open(s["wav"], "rb") as f:
             data = f.read()
-    wav, sr = read_audio_bytes(data)
+    wav, sr = read_audio_bytes(data, s.get("audio_ext"))
     if "start" in s:
         start = int(float(s["start"]) * sr)
         end = int(float(s.get("end", len(wav) / sr)) * sr)
@@ -148,8 +149,8 @@ def decode_wav(samples: Iterable[Dict],
                num_workers: int = 0) -> Iterator[Dict]:
     """Audio to mono float32 in [-1, 1], with optional [start, end] second
     segments; ``num_workers > 0`` decodes on an order-keeping thread pool.
-    A sample that fails to decode is skipped with a warning, as in the JAX
-    package; a container the port does not read raises."""
+    A sample that fails to decode (an unknown container among them) is
+    skipped with a warning, as in the JAX package."""
     if num_workers > 0:
         yield from parallel_map(_decode_one, samples, num_workers,
                                 on_error="skip")
@@ -157,8 +158,6 @@ def decode_wav(samples: Iterable[Dict],
     for s in samples:
         try:
             yield _decode_one(s)
-        except NotImplementedError:
-            raise
         except Exception as e:
             log.warning("decode_wav failed for %s: %s", s.get("key"), e)
 
@@ -191,7 +190,7 @@ def _drain_one(pending, on_error):
     try:
         yield f.result()
     except Exception as e:
-        if on_error == "raise" or isinstance(e, NotImplementedError):
+        if on_error == "raise":
             raise
         log.warning("parallel_map item failed: %s", e)
 

@@ -13,11 +13,17 @@ decay clamp).
 ``ops/wkv6.wkv6_backward`` (chunk 256, inner 16), plain PyTorch products as
 the JAX package's XLA backward, from the saved inputs alone.  The launch
 counter counts forward launches only.
+
+The forward is the registered operator ``pafc_torch::wkv6_fwd``
+(``torch.library.custom_op``): its CUDA kernel is K1's launch, its CPU
+kernel the plain version and its fake kernel gives the shapes, so
+``torch.export`` records K1 as one node of the graph
+(``tools/export_model.py``).  Importing this module registers it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,9 +73,39 @@ class _WKV6(torch.autograd.Function):
 
 
 def _forward(r, k, v, w, u, state, return_state):
-    if r.device.type != "cuda":
-        return wkv6_chunked(r, k, v, w, u, state=state,
-                            return_state=return_state)
+    y, s_out = torch.ops.pafc_torch.wkv6_fwd(r, k, v, w, u, state,
+                                             return_state)
+    return (y, s_out) if return_state else y
+
+
+def _no_state(r):
+    return r.new_empty((0,), dtype=torch.float32)
+
+
+@torch.library.custom_op("pafc_torch::wkv6_fwd", mutates_args=(),
+                         device_types="cpu")
+def wkv6_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor,
+             state: Optional[torch.Tensor],
+             return_state: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's operator: (y, the final f32 state, or an empty tensor unless
+    ``return_state``).  On the CPU: the plain version, ``wkv6_chunked``."""
+    out = wkv6_chunked(r, k, v, w, u, state=state,
+                       return_state=return_state)
+    return out if return_state else (out, _no_state(r))
+
+
+@wkv6_fwd.register_fake
+def _wkv6_fwd_fake(r, k, v, w, u, state, return_state):
+    B, _, H, N = r.shape
+    return (torch.empty_like(r),
+            r.new_empty((B, H, N, N), dtype=torch.float32) if return_state
+            else _no_state(r))
+
+
+@wkv6_fwd.register_kernel("cuda")
+def _wkv6_fwd_cuda(r, k, v, w, u, state, return_state):
+    """K1's launch: the refusals, the launch and its count."""
     B, T, H, N = r.shape
     cuda_lib.check_device("wkv6_cuda", r, k, v, w, u,
                           *([] if state is None else [state]))
@@ -93,15 +129,16 @@ def _forward(r, k, v, w, u, state, return_state):
         s0 = state.to(torch.float32).contiguous()
     y = torch.empty_like(r)
     s_out = (torch.empty(B, H, N, N, device=r.device, dtype=torch.float32)
-             if return_state else None)
+             if return_state else _no_state(r))
     fn = cuda_lib.entry("wkv6_fwd", "pafc_wkv6_fwd", _ARGTYPES)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = fn(code, B, T, H, N, r.data_ptr(), k.data_ptr(), v.data_ptr(),
-             w.data_ptr(), uf.data_ptr(), ptr(s0), y.data_ptr(), ptr(s_out),
+             w.data_ptr(), uf.data_ptr(), ptr(s0), y.data_ptr(),
+             s_out.data_ptr() if return_state else None,
              W_CLAMP, cuda_lib.stream_ptr(r.device))
     cuda_lib.check(err, "wkv6_fwd")
     wkv6_cuda.launches += 1
-    return (y, s_out) if return_state else y
+    return y, s_out
 
 
 wkv6_cuda.launches = 0

@@ -4,9 +4,12 @@ substitution / deletion / insertion counts, GigaSpeech post-processing
 (uppercase, hyphen split, no fillers, ``<UNK>`` or punctuation tags), CER
 units, and the long-form macro summary.
 
-The alignment keeps the JAX package's native DP's back-pointer rule: on a
-cost tie a cell takes the diagonal, then the deletion, then the insertion,
-so the counts equal JAX's.
+``align_words`` takes its counts from the native C++ DP
+(``native/pafc_native.cpp: levenshtein_counts``): the long-form scorer
+aligns ten-thousand-word episodes.  ``align_words_python`` is its plain
+version, the tests' reference, with the same back-pointer rule: on a cost
+tie a cell takes the diagonal, then the deletion, then the insertion, so
+the counts equal JAX's.
 """
 from __future__ import annotations
 
@@ -60,7 +63,24 @@ class AlignStats:
 
 
 def align_words(ref: Sequence[str], hyp: Sequence[str]) -> AlignStats:
-    """Levenshtein alignment (sub = del = ins = 1) and its op counts."""
+    """Levenshtein alignment (sub = del = ins = 1) and its op counts, from
+    the native DP."""
+    from paper_accurate_fast_cheap_tpu_torch import native
+
+    ids: Dict[str, int] = {}
+    for w in ref:
+        ids.setdefault(w, len(ids))
+    for w in hyp:
+        ids.setdefault(w, len(ids))
+    sub, dele, ins = native.levenshtein_counts(
+        np.asarray([ids[w] for w in ref], np.int32),
+        np.asarray([ids[w] for w in hyp], np.int32))
+    return AlignStats(ref_len=len(ref), sub=sub, ins=ins, dele=dele)
+
+
+def align_words_python(ref: Sequence[str],
+                       hyp: Sequence[str]) -> AlignStats:
+    """``align_words`` in Python: the same DP and back-pointer rule."""
     R, H = len(ref), len(hyp)
     # back-pointers: 0 diagonal, 1 deletion (up), 2 insertion (left)
     bp = np.zeros((R + 1, H + 1), np.uint8)

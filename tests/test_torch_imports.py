@@ -40,8 +40,10 @@ def test_port_imports_no_jax():
     # short-form CLI, the crash-repro tool, the encoder's attention types,
     # the WeNet converter, Mamba-2, the streaming and serving surface, the
     # chunk masks, the scoring and load-bench tools, the training CLI, the
-    # RTF harnesses, the searches' biasing and attention beam, and the
-    # align, fbank, CMVN and embedding tools are among those imported
+    # RTF harnesses, the searches' biasing and attention beam, the align,
+    # fbank, CMVN and embedding tools, the codecs and their C++ shims, the
+    # shard and data tools, the hub, the export tool and the recipe's
+    # drivers are among those imported
     assert {f"{PKG}.{m}" for m in (
         "ops.ffn", "ops.rnnt", "train.schedulers", "train.train_step",
         "bin.train_bench", "ops.multi_product", "ops.losses",
@@ -60,14 +62,21 @@ def test_port_imports_no_jax():
         "bin.beam_bench", "bin.scan_op_bench", "ops.ctc_utils", "bin.align",
         "data.kaldi_io", "bin.compute_fbank_feats",
         "bin.compute_cmvn_stats", "bin.write_embeddings",
-        "tools.vector_index")} <= set(mods)
+        "tools.vector_index", "native", "data.audio", "data.flac",
+        "data.codecs", "hub", "bin.make_shard", "bin.data_tools",
+        "tools.export_model", "examples.gigaspeech.local",
+        "examples.gigaspeech.local.make_lf_fixture",
+        "examples.gigaspeech.local.run_accuracy_loop",
+        "examples.gigaspeech.local.run_impl_matrix",
+        "examples.gigaspeech.local.run_lf_sweep",
+        "examples.gigaspeech.local.run_rtf_sweep")} <= set(mods)
 
 
 def test_port_sources_do_not_name_the_jax_package():
-    """No port source (comments included) names the JAX package, and no
-    port source or ``chip_smoke.py`` imports jax, flax or optax.  (The
-    script names the TPU kernels' files in its report, so only its imports
-    are checked.)"""
+    """No port source (comments included; the C++ shims too) names the JAX
+    package, and no port source or ``chip_smoke.py`` imports jax, flax or
+    optax.  (The script names the TPU kernels' files in its report, so only
+    its imports are checked.)"""
     pat = re.compile(r"paper_accurate_fast_cheap_tpu(?!_torch)")
     imp = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b",
                      re.M)
@@ -79,7 +88,7 @@ def test_port_sources_do_not_name_the_jax_package():
         # _build holds compiled kernels and unpacked checkouts, not sources
         dirs[:] = [x for x in dirs if x != "_build"]
         for name in files:
-            if not name.endswith((".py", ".cu", ".cuh")):
+            if not name.endswith((".py", ".cu", ".cuh", ".cpp")):
                 continue
             path = os.path.join(d, name)
             with open(path) as f:

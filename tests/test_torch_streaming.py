@@ -256,13 +256,16 @@ def model_dir(families, tmp_path_factory):
     return d
 
 
-def test_api_model_from_dir(model_dir):
+def test_api_model_from_dir(model_dir, tmp_path, monkeypatch):
+    monkeypatch.setenv("PAFC_HOME", str(tmp_path / "hub"))
     m = api.load_model(str(model_dir), device="cpu")
     wav = _wav(21, 4 * 3 * C)
     out = m.transcribe(wav, tokens_info=True)
     assert out["text"] == m.transcribe_batch([wav])[0]
     assert len(out["times"]) == len(out["token_ids"])
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # a name that is neither a model directory nor registered: the hub's
+    # KeyError, as JAX's
+    with pytest.raises(KeyError, match="unknown model 'wenetspeech'"):
         api.load_model("wenetspeech", device="cpu")
 
 

@@ -108,7 +108,10 @@ def test_wav_reading_and_resampling_match_jax(width, channels, sr):
         g = np.gcd(sr, 16000)
         rj = resample_poly(wj, 16000 // g, sr // g).astype(np.float32)
         np.testing.assert_array_equal(rt, rj)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a FLAC magic on a body that is not FLAC: JAX's error, as JAX raises
+    with pytest.raises(ValueError, match="flac decode failed"):
+        j_pipeline._read_audio_bytes(b"fLaC" + data[4:])
+    with pytest.raises(ValueError, match="flac decode failed"):
         t_audio.read_audio_bytes(b"fLaC" + data[4:])
 
 
