@@ -123,7 +123,24 @@ Phases, each fatal on failure (no phase is skipped or caught):
  28. run_lf_sweep over the loop's long-form episodes as FLACs at chunk
      sizes 2000 and 4000;
  29. run_rtf_sweep: one bin/encoder_rtf subprocess per point, the bi-RWKV
-     and MHA bench YAMLs x chunks 2000 and 9000 at batch 4;
+     and MHA bench YAMLs at chunk 9000, batch 4 (chunk 2000 was cut to
+     keep the script inside its limit on a slow host);
+ 30. the LSL flagship (num_langs 2: blocks 0 and 11 language-specific,
+     built from encoder_conf as the JAX package's tests build it): a small
+     f32 reference with cat_embs one-hot and None, the card against the
+     CPU, and None against [0.5, 0.5] on the card; then the main path at
+     32 x 90 s, bf16, beam 8, the rows' cat_embs [1, 0], [0, 1] and
+     [0.5, 0.5] in turn, K1 28 a forward, K2 2248 and K3 2249 exactly;
+ 31. each other encoder family (transformer, branchformer,
+     e_branchformer, squeezeformer, efficient_conformer) under the
+     long-form conformer YAML's widths with the flagship's head: the card
+     against the CPU at 2 x 3 s in f32 (within 1e-3), then encoder + CTC
+     at 32 x 90 s in bf16, one warm and one timed call, with peak memory;
+ 32. recognize_wav through the factory on an E-Branchformer transducer
+     YAML written by the phase, on phase 23's 180 s WAV (K2 and K3 exact,
+     no K1); then the standard flagship with --verbatimicity 1.0, its TXT
+     and CTM equal to phase 23's byte for byte (a model from a config has
+     no LSL blocks);
 then one JSON line with every kernel's numbers and, last, the result line.
 K1 is also held and timed at the streaming call (8 x 16 x 8 x 64, the
 state in and out, bf16) in phase 3.
@@ -1226,6 +1243,15 @@ def build_model(hat: bool = False, config=None, seed=None, label=None):
     model, _ = factory.init_model(
         config, VOCAB, 80, generator=torch.Generator().manual_seed(
             seed if seed is not None else 2 if hat else 1))
+    return _speech_like(model, hat, label or ("HAT" if hat else "flagship"),
+                        t0)
+
+
+def _speech_like(model, hat: bool, label: str, t0: float):
+    """Blank bias +2.5 on both output heads (see build_model); logs the
+    model's size and build time.  Returns the model."""
+    import torch
+
     with torch.no_grad():
         if hat:
             model.joint.blank_pred.bias[0] += 2.5 - float(np.log(VOCAB - 1))
@@ -1233,7 +1259,6 @@ def build_model(hat: bool = False, config=None, seed=None, label=None):
             model.joint.ffn_out.bias[0] += 2.5
         model.ctc.ctc_lo.bias[0] += 2.5
     n = sum(p.numel() for p in model.parameters())
-    label = label or ("HAT" if hat else "flagship")
     log(f"model: {label} transducer, {n / 1e6:.1f} M parameters, built in "
         f"{time.perf_counter() - t0:.1f} s")
     return model
@@ -1338,11 +1363,12 @@ def beam(model, enc, elens, logp, topk_impl="auto"):
         impl="device", defer=True, topk_impl=topk_impl)
 
 
-def decode(model, featurize, wavs, lens, stages=None):
+def decode(model, featurize, wavs, lens, stages=None, cat_embs=None):
     """The main path through the port's entry points: fbank + CMVN ->
     encoder -> CTC -> device prefix beam -> packed finalize.  With a dict
     ``stages``, the device is synchronised after each stage and its wall
-    seconds recorded there."""
+    seconds recorded there.  ``cat_embs`` (B, K) mixes an LSL encoder's
+    language-specific blocks."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.decode import rnnt_search
@@ -1357,7 +1383,7 @@ def decode(model, featurize, wavs, lens, stages=None):
     feats, flens = featurize(wavs, lens)
     feats = feats.to(next(model.parameters()).dtype)
     mark()
-    enc, elens = model.forward_encoder(feats, flens)
+    enc, elens = model.forward_encoder(feats, flens, cat_embs=cat_embs)
     logp = model.ctc_logprobs(enc)
     mark()
     carry = beam(model, enc, elens, logp)
@@ -1533,12 +1559,13 @@ def _cmvn_stats(featurize, wavs, lens):
 
 
 def phase_main(model, rng, batch, label="flagship", wkv=24, split=True,
-               warm_beam=True):
+               warm_beam=True, cat_embs=None):
     """The main path's window batch in bf16 (the flagship, or ``label``'s
     model launching K1 ``wkv`` times a forward): one warm-up (without
     ``warm_beam``, of the features and the encoder only: the beam's shapes
     are the flagship's, already warm), one timed run; with ``split``, the
-    beam's device time by kernel.  Returns (ok, counts, stages)."""
+    beam's device time by kernel.  ``cat_embs`` (batch, K) conditions an
+    LSL encoder.  Returns (ok, counts, stages)."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
@@ -1553,11 +1580,12 @@ def phase_main(model, rng, batch, label="flagship", wkv=24, split=True,
 
     t0 = time.perf_counter()
     if warm_beam:
-        decode(model, featurize, wavs, lens)
+        decode(model, featurize, wavs, lens, cat_embs=cat_embs)
     else:
         with torch.no_grad():
             feats, flens = featurize(wavs, lens)
-            enc, _ = model.forward_encoder(feats.to(torch.bfloat16), flens)
+            enc, _ = model.forward_encoder(feats.to(torch.bfloat16), flens,
+                                           cat_embs=cat_embs)
             model.ctc_logprobs(enc)
         del feats, enc
     torch.cuda.synchronize()
@@ -1567,7 +1595,8 @@ def phase_main(model, rng, batch, label="flagship", wkv=24, split=True,
     zero_counts()
     t0 = time.perf_counter()
     stages = {}
-    res, enc, logp, carry = decode(model, featurize, wavs, lens, stages)
+    res, enc, logp, carry = decode(model, featurize, wavs, lens, stages,
+                                   cat_embs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -3781,7 +3810,9 @@ LOOP_LF_CHUNKS = "2000,4000"
 # the accuracy loop's decode weights (its run_accuracy_loop defaults)
 LOOP_WEIGHTS = ("--ctc_weight", "0.1", "--transducer_weight", "0.9")
 RTF_SWEEP_MODELS = "rwkv_bi_12L,mha_12L"
-RTF_SWEEP_CHUNKS = "2000,9000"
+# the paper's long-form point only: chunk 2000 (launch-bound, its 1/RTF
+# swings with the host) was cut to keep the script inside its time limit
+RTF_SWEEP_CHUNKS = "9000"
 
 
 def phase_codec_libs() -> dict:
@@ -3825,10 +3856,11 @@ def _cli_want(n_samples: int, batch: int) -> dict:
                  lstm_step=(CLI_FRAMES + 1) * n)
 
 
-def _cli_file(paths, audio: str, out: str, batch: int):
-    """recognize_wav on the standard flagship (bf16, beam 8) for one audio
-    file, counters zeroed before and read after.  Returns (rc, counts,
-    wall s, TXT bytes, CTM bytes)."""
+def _cli_file(paths, audio: str, out: str, batch: int, extra=(),
+              name: str = "standard"):
+    """recognize_wav on ``name``'s model (the standard flagship; bf16, beam
+    8) for one audio file, ``extra`` flags added, counters zeroed before
+    and read after.  Returns (rc, counts, wall s, TXT bytes, CTM bytes)."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.bin import recognize_wav
@@ -3836,11 +3868,11 @@ def _cli_file(paths, audio: str, out: str, batch: int):
     zero_counts()
     t0 = time.perf_counter()
     rc = recognize_wav.main([
-        "--config", paths["standard.json"],
-        "--checkpoint", paths["standard.pt"], "--wav", audio,
+        "--config", paths[name + ".json"],
+        "--checkpoint", paths[name + ".pt"], "--wav", audio,
         "--output_dir", out, "--mode", "rnnt_beam_search",
         "--batch_size", str(batch), "--chunk_size", str(CLI_CHUNK),
-        "--beam_size", str(BEAM), "--precision", "bf16"])
+        "--beam_size", str(BEAM), "--precision", "bf16", *extra])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -4160,7 +4192,7 @@ def phase_lf_sweep(work: str, loop_dir: str) -> bool:
 
 def phase_rtf_sweep(work: str) -> bool:
     """run_rtf_sweep: one bin/encoder_rtf subprocess per (model, batch 4,
-    chunk) for the bi-RWKV and MHA bench YAMLs x chunks 2000 and 9000
+    chunk) for the bi-RWKV and MHA bench YAMLs x RTF_SWEEP_CHUNKS
     (bf16, 2 + 10 forwards each), tabled by tools/rtf_tables.  The
     subprocesses reuse the kernels built in _build/ (their .rtf files say
     kernels_cached yes)."""
@@ -4178,6 +4210,266 @@ def phase_rtf_sweep(work: str) -> bool:
     log(f"RTF sweep ({n} subprocesses): {wall:.1f} s; kernels cached "
         f"{cached}; " + " ; ".join(table[1:]) + f" {'ok' if good else 'FAIL'}")
     return good
+
+
+# The language-specific (LSL) flagship: num_langs 2 makes blocks 0 and 11
+# two blocks each, so K1 runs 2 x (12 - 2 + 2 x 2) = 28 times a forward.
+LSL_LANGS = 2
+LSL_WKV = 2 * (FLAGSHIP_ENCODER["num_blocks"] - 2 + 2 * LSL_LANGS)
+# verbatimicity rows of the LSL main path: [v, 1 - v] at v = 1, 0 and 0.5
+LSL_ROWS = ([1.0, 0.0], [0.0, 1.0], [0.5, 0.5])
+# the other encoder families, each at the long-form conformer YAML's widths
+FAMILIES = ("transformer", "branchformer", "e_branchformer", "squeezeformer",
+            "efficient_conformer")
+
+
+def build_lsl_model(seed: int = 41):
+    """The flagship with ``num_langs`` 2, built by passing
+    ``encoder_conf=dict(..., num_langs=2)`` to the Transducer, as the JAX
+    package's tests build it (its YAML key set has no ``num_langs``)."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.models import factory
+    from paper_accurate_fast_cheap_tpu_torch.models.layers import (
+        init_default)
+    from paper_accurate_fast_cheap_tpu_torch.models.transducer import (
+        Transducer)
+
+    t0 = time.perf_counter()
+    mc = CONFIG["model_conf"]
+    model = Transducer(
+        VOCAB, dict(factory.encoder_conf_from_yaml(FLAGSHIP_ENCODER, 80),
+                    num_langs=LSL_LANGS),
+        predictor_conf=dict(CONFIG["predictor_conf"]),
+        joint_conf=dict(CONFIG["joint_conf"]),
+        transducer_weight=mc["transducer_weight"],
+        ctc_weight=mc["ctc_weight"],
+        attention_weight=mc["attention_weight"])
+    init_default(model, torch.Generator().manual_seed(seed))
+    return _speech_like(model.cuda().eval(), False,
+                        f"LSL flagship (num_langs {LSL_LANGS})", t0)
+
+
+def _small_batch(rng, B: int = 2, seconds: int = 3):
+    """(wavs, lens, CMVN stats) of a small f32 reference batch."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
+
+    S = seconds * 16000
+    wavs = torch.from_numpy((rng.randn(B, S) * 0.1).astype(np.float32))
+    lens = torch.tensor([S, S - 8000], dtype=torch.int64)
+    stats = _cmvn_stats(pipeline.make_feature_fn({}, None, device="cpu"),
+                        wavs, lens)
+    return wavs, lens, stats
+
+
+def phase_lsl_reference(model, rng) -> bool:
+    """The LSL flagship at a small input (2 x 3 s), f32, the card against
+    the CPU with ``cat_embs`` one-hot and None (encoder and CTC within
+    1e-3, device-beam tokens identical, K1 28 a forward on the card), and
+    on the card None against [0.5, 0.5] (within 1e-6, tokens identical)."""
+    import copy
+
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.decode import rnnt_search
+    from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
+    from paper_accurate_fast_cheap_tpu_torch.models.rwkv import RWKVAttention
+
+    wavs, lens, stats = _small_batch(rng)
+    cats = {"one-hot": [[1.0, 0.0], [0.0, 1.0]], "None": None,
+            "[0.5, 0.5]": [[0.5, 0.5], [0.5, 0.5]]}
+    out = {}
+    for where, dev in (("card", "cuda"), ("host", "cpu")):
+        m = model if where == "card" else copy.deepcopy(model).to("cpu")
+        for mod in m.modules():
+            if isinstance(mod, RWKVAttention):
+                mod.do_bfloat16 = False
+        fz = pipeline.make_feature_fn({}, stats, device=dev)
+        feats, flens = fz(wavs.to(dev), lens.to(dev))
+        for label, c in cats.items():
+            if where == "host" and label == "[0.5, 0.5]":
+                continue
+            cat = None if c is None else torch.tensor(c, device=dev)
+            zero_counts()
+            enc, elens = m.forward_encoder(feats, flens, cat_embs=cat)
+            k1 = read_counts()["wkv6_fwd"]
+            logp = m.ctc_logprobs(enc)
+            res = rnnt_search.finalize_device_beam(beam(m, enc, elens, logp))
+            out[where, label] = (res, enc.float().cpu(), logp.float().cpu(),
+                                 k1)
+    for mod in model.modules():
+        if isinstance(mod, RWKVAttention):
+            mod.do_bfloat16 = True
+    ok = True
+    for label, bound, other in (("one-hot", 1e-3, ("host", "one-hot")),
+                                ("None", 1e-3, ("host", "None")),
+                                ("None", 1e-6, ("card", "[0.5, 0.5]"))):
+        (rg, eg, lg, k1), (rc, ec, lc, _) = out["card", label], out[other]
+        enc_err = float((eg - ec).abs().max())
+        ctc_err = float((lg - lc).abs().max())
+        same = all(a.tokens == b.tokens for a, b in zip(rg, rc))
+        good = (enc_err <= bound and ctc_err <= bound and same
+                and k1 == LSL_WKV and any(r.tokens for r in rg))
+        ok = ok and good
+        log(f"LSL reference, cat_embs {label} on the card against "
+            f"{other[1]} on the {other[0]} (2 x 3 s, f32): encoder "
+            f"max_abs_err {enc_err:.3e}, ctc {ctc_err:.3e} (<= {bound:g}), "
+            f"tokens identical {same}, K1 a forward {k1} (want {LSL_WKV}) "
+            f"{'ok' if good else 'FAIL'}")
+    one, uniform = out["card", "one-hot"][1], out["card", "None"][1]
+    log(f"LSL reference: one-hot against uniform, encoder max diff "
+        f"{float((one - uniform).abs().max()):.3e} (the languages differ)")
+    return ok
+
+
+def phase_lsl(rng, batch):
+    """(a) The LSL flagship: the small f32 reference, then the main path at
+    32 x 90 s, bf16, beam 8, with the rows' ``cat_embs`` cycling through
+    LSL_ROWS; K1 28 a forward, K2 2248, K3 2249 exactly.  Returns (ok,
+    counts, stages)."""
+    import torch
+
+    model = build_lsl_model()
+    ref_ok = phase_lsl_reference(model, rng)
+    cats = torch.tensor([LSL_ROWS[i % len(LSL_ROWS)] for i in range(batch)],
+                        device="cuda")
+    ok, counts, stages = phase_main(
+        model, rng, batch, f"LSL flagship (num_langs {LSL_LANGS})",
+        wkv=LSL_WKV, split=False, warm_beam=False, cat_embs=cats)
+    return ok and ref_ok, counts, stages
+
+
+def family_config(family: str) -> dict:
+    """The long-form conformer YAML's encoder under ``encoder: family``
+    (the registry keeps JAX's keys of that family; its own keys take their
+    defaults) with the flagship's predictor and joint."""
+    return dict(attention_config(), encoder=family)
+
+
+def phase_families(rng, batch, flagship_stages) -> bool:
+    """(b) Each family of FAMILIES at the long-form conformer YAML's widths
+    (d 512, 8 heads, 2048 units, 12 blocks, kernel 31, conv2d): the card
+    against the CPU at a small f32 input (encoder and CTC within 1e-3),
+    then encoder + CTC at ``batch`` x 90 s, bf16, one warm call and one
+    timed call, with peak memory; no kernel runs on these paths (their
+    FFNs are plain products, as in JAX).  Returns ok."""
+    import copy
+
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
+
+    wavs, lens, stats = _small_batch(rng)
+    S = WINDOW_S * 16000
+    big = torch.from_numpy((rng.randn(batch, S) * 0.1).astype(
+        np.float32)).cuda()
+    big_lens = torch.full((batch,), S, dtype=torch.int64, device="cuda")
+    big_fz = pipeline.make_feature_fn({}, _cmvn_stats(
+        pipeline.make_feature_fn({}, None), big[:4], big_lens[:4]))
+    ok = True
+    for i, family in enumerate(FAMILIES):
+        model = build_model(config=family_config(family), seed=50 + i,
+                            label=f"{family} (long-form YAML widths)")
+        ref = {}
+        for where, dev in (("card", "cuda"), ("host", "cpu")):
+            m = model if where == "card" else copy.deepcopy(model).to("cpu")
+            feats, flens = pipeline.make_feature_fn({}, stats, device=dev)(
+                wavs.to(dev), lens.to(dev))
+            enc, elens = m.forward_encoder(feats, flens)
+            ref[where] = (enc.float().cpu(), m.ctc_logprobs(enc).float().cpu(),
+                          elens.cpu())
+        enc_err = float((ref["card"][0] - ref["host"][0]).abs().max())
+        ctc_err = float((ref["card"][1] - ref["host"][1]).abs().max())
+        ref_ok = (enc_err <= 1e-3 and ctc_err <= 1e-3
+                  and torch.equal(ref["card"][2], ref["host"][2]))
+        model = model.to(torch.bfloat16)
+        with torch.no_grad():
+            feats, flens = big_fz(big, big_lens)
+            feats = feats.to(torch.bfloat16)
+            model.ctc_logprobs(model.forward_encoder(feats, flens)[0])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            enc, elens = model.forward_encoder(feats, flens)
+            logp = model.ctc_logprobs(enc)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        finite = bool(torch.isfinite(enc.float()).all()
+                      and torch.isfinite(logp.float()).all())
+        shape_ok = (enc.shape[0] == batch and enc.shape[2] == 512
+                    and tuple(logp.shape) == (*enc.shape[:2], VOCAB)
+                    and int(elens.max()) == enc.shape[1])
+        good = (ref_ok and finite and shape_ok
+                and counts == dict.fromkeys(counts, 0))
+        ok = ok and good
+        log(f"family {family}: card vs CPU (2 x 3 s, f32, "
+            f"{ref['card'][0].shape[1]} frames) encoder max_abs_err "
+            f"{enc_err:.3e}, ctc {ctc_err:.3e} (<= 1e-3); {batch} x "
+            f"{WINDOW_S} s bf16: encoder+ctc {wall:.4f} s (the flagship's "
+            f"{flagship_stages['encoder+ctc']:.4f} s), {enc.shape[1]} "
+            f"frames, 1/RTF {batch * WINDOW_S / wall:.1f}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, finite "
+            f"{finite}, counters all 0 {counts == dict.fromkeys(counts, 0)} "
+            f"{'ok' if good else 'FAIL'}")
+        del model, feats, enc, logp
+        torch.cuda.empty_cache()
+    return ok
+
+
+def phase_family_cli(work: str, paths, card: str) -> bool:
+    """(c) The factory -> CLI route: recognize_wav on an E-Branchformer
+    transducer YAML (the long-form YAML's widths, the flagship's head)
+    written here, on phase 23's 180 s WAV (bf16, beam 8): TXT and CTM
+    well formed, K2 and K3 exact and no K1; then the standard flagship's
+    config with --verbatimicity 1.0, whose TXT and CTM equal phase 23's
+    without it byte for byte (a model from a config has no LSL blocks: the
+    JAX CLI's rule)."""
+    import torch
+    import yaml
+
+    wav = os.path.join(work, "formats", "wav", "lf.wav")
+    n = (FMT_WINDOWS * CLI_CHUNK - 1) * 160 + 400
+    with open(paths["standard.json"]) as f:
+        conf = dict(json.load(f), encoder="e_branchformer",
+                    encoder_conf=_yaml(MHA_YAML)["encoder_conf"])
+    paths = dict(paths, **{"e_branchformer.json": os.path.join(
+        work, "e_branchformer.yaml"), "e_branchformer.pt": os.path.join(
+        work, "e_branchformer.pt")})
+    with open(paths["e_branchformer.json"], "w") as f:
+        yaml.safe_dump(conf, f)
+    model = build_model(config=conf, seed=60, label="E-Branchformer (CLI)")
+    torch.save(model.state_dict(), paths["e_branchformer.pt"])
+    del model
+    out = os.path.join(work, "out_e_branchformer")
+    rc, counts, wall, txt, ctm = _cli_file(paths, wav, out, FMT_WINDOWS,
+                                           name="e_branchformer")
+    want = _want(joint_topk=CLI_FRAMES, lstm_step=CLI_FRAMES + 1)
+    ctm_ok, n_ctm = check_ctm(os.path.join(out, "lf.ctm"), "lf", n / 16000)
+    ok = rc == 0 and counts == want and len(txt.split()) > 0 and ctm_ok
+    with open(os.path.join(out, "lf.rtf")) as f:
+        rtf = f.readline().strip()
+    log(f"CLI e_branchformer YAML [{card}]: recognize_wav.main {wall:.2f} s "
+        f"(model load included; {rtf}), counters {json.dumps(counts)}, "
+        f"expected {json.dumps(want)}; TXT {len(txt.split())} words, CTM "
+        f"{n_ctm} lines well formed {ctm_ok} {'ok' if ok else 'FAIL'}")
+    out = os.path.join(work, "out_verbatimicity")
+    rc, counts, wall, txt, ctm = _cli_file(
+        paths, wav, out, FMT_WINDOWS, extra=("--verbatimicity", "1.0"))
+    with open(os.path.join(os.path.dirname(wav), "lf.txt"), "rb") as f:
+        same = txt == f.read()
+    with open(os.path.join(os.path.dirname(wav), "lf.ctm"), "rb") as f:
+        same = same and ctm == f.read()
+    want = _cli_want(n, FMT_WINDOWS)
+    good = rc == 0 and counts == want and same
+    log(f"CLI standard --verbatimicity 1.0 [{card}]: {wall:.2f} s, counters "
+        f"{json.dumps(counts)}, expected {json.dumps(want)}; TXT and CTM "
+        f"equal the run without the flag byte for byte: {same} "
+        f"{'ok' if good else 'FAIL'}")
+    return ok and good
 
 
 def main() -> int:
@@ -4377,6 +4669,19 @@ def main() -> int:
                                  libs, card):
             failed.append("recognize_wav on FLAC, Opus and MP3")
         lap("formats CLI")
+        # the LSL flagship, the other encoder families, the factory -> CLI
+        # route
+        torch.cuda.empty_cache()
+        lsl_ok, lsl_counts, _ = phase_lsl(np.random.RandomState(37),
+                                          args.batch)
+        if not lsl_ok:
+            failed.append("LSL flagship")
+        if not phase_families(np.random.RandomState(38), args.batch,
+                              stages):
+            failed.append("encoder families")
+        if not phase_family_cli(work, paths, card):
+            failed.append("recognize_wav, E-Branchformer and verbatimicity")
+        lap("LSL, encoder families, family CLI")
         if not phase_hub(work, paths):
             failed.append("hub")
         lap("hub")
@@ -4420,6 +4725,7 @@ def main() -> int:
         f"({TRAIN_WARMUP + TRAIN_ITERS} steps x 24 per forward); short-form "
         f"recognize, rnnt_beam_search: {json.dumps(sf_counts)}")
     log(f"Mamba-2 bi main path counters: {json.dumps(mb_counts)}")
+    log(f"LSL flagship main path counters: {json.dumps(lsl_counts)}")
     log(f"chip_smoke: every phase ok in {time.perf_counter() - t_start:.1f} "
         "s")
     for row in rows:

@@ -22,8 +22,12 @@ beam's duplicate merge (``pairwise`` or ``sort``).
 ``--encoder_context_size`` N > 0 switches the encoder's self-attention to
 LCA with context (N, N) and ``--encoder_global_tokens`` global tokens, as
 the JAX CLI does; a rel-pos MHA checkpoint loads into it (the same
-parameters).  ``--seq_parallel`` > 1 and ``--verbatimicity`` need modules
-not ported yet and raise.
+parameters).  ``--verbatimicity`` v gives every window ``cat_embs = [v,
+1 - v]``, which mixes the language-specific blocks of an LSL encoder (as in
+JAX, a YAML builds no LSL blocks, so a model from a YAML ignores it).  Every
+encoder family of the factory decodes; the CTM's frame rate is 40 ms
+whatever the subsampling, as in the JAX CLI.  ``--seq_parallel`` > 1 needs
+modules not ported yet and raises.
 
 Usage:
   python -m paper_accurate_fast_cheap_tpu_torch.bin.recognize_wav \\
@@ -65,7 +69,7 @@ def get_args(argv=None):
                    help="accepted, does nothing (the WKV kernel takes any "
                         "length)")
     p.add_argument("--verbatimicity", type=float, default=None,
-                   help="cat_embs conditioning (LSL encoders): not ported")
+                   help="cat_embs = [v, 1-v] conditioning (LSL encoders)")
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"],
                    help="decode dtype of the weights and features")
     p.add_argument("--wkv_impl", default=None, choices=["pallas", "chunked"],
@@ -128,14 +132,9 @@ def make_window_slicer(wav: np.ndarray, win_samples: int, device):
 
 
 def _check_flags(args) -> None:
-    unported = []
     if args.seq_parallel > 1:
-        unported.append("--seq_parallel (ROADMAP Queue 1, item 14)")
-    if args.verbatimicity is not None:
-        unported.append("--verbatimicity (ROADMAP Queue 1, item 12b: LSL "
-                        "encoders)")
-    if unported:
-        raise NotImplementedError("not ported yet: " + "; ".join(unported))
+        raise NotImplementedError(
+            "not ported yet: --seq_parallel (ROADMAP Queue 1, item 14)")
     given = [f"--{k}" for k, d in _IGNORED.items() if getattr(args, k) != d]
     if given:
         logging.info("%s: TPU dispatch choices of the JAX CLI; accepted "
@@ -170,6 +169,10 @@ def main(argv=None):
         build_decode_assets(config, args.checkpoint, device=dev)
     if args.precision == "bf16":
         model = model.to(torch.bfloat16)
+    cat_embs = None
+    if args.verbatimicity is not None:
+        v = args.verbatimicity
+        cat_embs = torch.tensor([[v, 1.0 - v]], device=dev)
 
     with open(args.wav, "rb") as f:
         wav, sr = read_audio_bytes(f.read())
@@ -183,7 +186,9 @@ def main(argv=None):
 
     name = os.path.splitext(os.path.basename(args.wav))[0]
     os.makedirs(args.output_dir, exist_ok=True)
-    subsample = 4  # conv2d ds4; frame rate after encoder = 0.04 s
+    # conv2d ds4's frame rate, 0.04 s, for every subsampling (the JAX CLI's
+    # rule)
+    subsample = 4
 
     beam = model_type == "transducer" and args.mode == "rnnt_beam_search"
     if args.mode == "rnnt_beam_search" and not beam:
@@ -204,7 +209,9 @@ def main(argv=None):
         feats, feat_lens = featurize(window_slice(s0), slens)
         if args.precision == "bf16":
             feats = feats.to(torch.bfloat16)
-        enc, enc_lens = model.forward_encoder(feats, feat_lens)
+        enc, enc_lens = model.forward_encoder(
+            feats, feat_lens, cat_embs=None if cat_embs is None
+            else cat_embs.expand(feats.shape[0], -1))
         logp = model.ctc_logprobs(enc)
         payload = None
         if beam:

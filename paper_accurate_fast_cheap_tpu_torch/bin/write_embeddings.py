@@ -10,7 +10,10 @@ the reference pools over the padding too, JAX fixed that and so does the
 port).  Writes ``<output_name>/sample_names`` and one
 ``embeddings_layer_i`` text matrix per kept layer, and with
 ``--build_index`` a cosine ``tools/vector_index.VectorIndex`` per layer as
-``index_layer_i.npz``.  The checkpoint is the port's state_dict file.
+``index_layer_i.npz``.  ``--cat_embs`` (comma floats, one per language)
+conditions the language-specific blocks of an LSL encoder, every row
+alike (a plain encoder ignores it).  The checkpoint is the port's
+state_dict file.
 
 Usage:
   python -m paper_accurate_fast_cheap_tpu_torch.bin.write_embeddings \\
@@ -44,8 +47,7 @@ def get_args(argv=None):
                         "embeddings_layer_i")
     p.add_argument("--cat_embs", default="",
                    help="comma floats for the language-specific layers' "
-                        "conditioning (not ported: ROADMAP Queue 1, item "
-                        "12b)")
+                        "conditioning")
     p.add_argument("--layers", default=None,
                    help="comma layer ids to keep (default: all)")
     p.add_argument("--build_index", action="store_true",
@@ -56,11 +58,16 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def layer_embeddings(model, feats, feat_lens) -> torch.Tensor:
+def layer_embeddings(model, feats, feat_lens,
+                     cat_embs: torch.Tensor = None) -> torch.Tensor:
     """(B, layers, D) float32: each block's output averaged over the
-    utterance's valid encoder frames."""
+    utterance's valid encoder frames; ``cat_embs`` (1, K) is given to every
+    row."""
+    if cat_embs is not None:
+        cat_embs = cat_embs.to(feats.device).expand(feats.shape[0], -1)
     out, enc_lens, layers = model.encoder(feats, feat_lens,
-                                          return_layers=True)
+                                          return_layers=True,
+                                          cat_embs=cat_embs)
     mask = (torch.arange(out.shape[1], device=out.device)[None, :]
             < enc_lens[:, None]).float()
     denom = torch.clamp(enc_lens.float(), min=1.0)[:, None]
@@ -72,10 +79,10 @@ def main(argv=None):
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO)
     dev = resolve_device(args.device)
+    cat_embs = None
     if args.cat_embs:
-        raise NotImplementedError(
-            "--cat_embs conditions the language-specific encoder layers, "
-            "which the port lacks (ROADMAP Queue 1, item 12b)")
+        cat_embs = torch.tensor([[float(x)
+                                  for x in args.cat_embs.split(",")]])
     from paper_accurate_fast_cheap_tpu_torch.bin.recognize import (
         build_decode_assets)
     from paper_accurate_fast_cheap_tpu_torch.data import pipeline as dp
@@ -106,7 +113,8 @@ def main(argv=None):
         with torch.no_grad():
             feats, feat_lens = featurize(torch.from_numpy(batch["wavs"]),
                                          torch.from_numpy(batch["wav_lens"]))
-            embs = layer_embeddings(model, feats, feat_lens).cpu().numpy()
+            embs = layer_embeddings(model, feats, feat_lens,
+                                    cat_embs).cpu().numpy()
         if per_layer is None:
             per_layer = [[] for _ in range(embs.shape[1])]
         for i in range(embs.shape[1]):

@@ -15,9 +15,15 @@ The port names its submodules after the flax tree (``encoder.layer_{i}``,
 * LayerNorm and gated RMSNorm ``scale``, Embed ``embedding`` -> ``weight``
 * the LSTM recurrent matrix ``hh`` (H, 4H) -> (4H, H)
 
-Biases, the rel-pos attention's ``pos_bias_u`` and ``pos_bias_v`` (H, d_k),
-the RWKV mixing parameters (``time_*``) and the Mamba-2 block's
-``dt_bias``, ``A_log`` and ``D`` (H,) keep their layout.  A leaf of
+Biases, the rel-pos attention's ``pos_bias_u`` and ``pos_bias_v`` (H, d_k;
+(H, d_k * g) in the grouped attention), the RWKV mixing parameters
+(``time_*``), the Mamba-2 block's ``dt_bias``, ``A_log`` and ``D`` (H,),
+the embedding predictor's ``pos_weight``, the MoE experts' ``w1`` and
+``w2``, LoRA's ``lora_A`` and ``lora_B`` and the learnable positions'
+``pos_embedding`` keep their layout; squeezeformer's ``ScaledResidual``
+``scale`` becomes ``weight``.  The ``batch_stats`` collection (the conv
+module's ``batch_norm``), given beside ``params``, maps ``mean`` and
+``var`` to the BatchNorm's ``running_mean`` and ``running_var``.  A leaf of
 any other name (a module the port does not have) raises KeyError.  WeNet
 checkpoints load through ``tools/convert_checkpoint.py``.
 
@@ -45,16 +51,29 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 # the leaves of the ported modules besides the RWKV's ``time_*``
 _LEAVES = ("bias", "kernel", "scale", "embedding", "hh", "pos_bias_u",
-           "pos_bias_v", "dt_bias", "A_log", "D")
+           "pos_bias_v", "dt_bias", "A_log", "D", "pos_weight", "w1", "w2",
+           "lora_A", "lora_B", "pos_embedding")
+# the batch_stats leaves and the BatchNorm buffers they fill
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """``params``: the flax tree as nested dicts of numpy arrays (with or
-    without the outer ``{"params": ...}``).  Returns the port's
+    without the outer ``{"params": ...}``, beside which a
+    ``"batch_stats"`` collection may stand).  Returns the port's
     ``state_dict``, f32 (bf16 arrays are widened exactly)."""
-    if set(params) == {"params"}:
+    stats = {}
+    if "params" in params and set(params) <= {"params", "batch_stats"}:
+        stats = params.get("batch_stats", {})
         params = params["params"]
     out = {}
+    for name, arr in _flatten(stats):
+        parent, _, leaf = name.rpartition(".")
+        if leaf not in _STATS:
+            raise KeyError(f"state_dict_from_jax: flax batch_stats {name!r} "
+                           "has no counterpart in the port")
+        out[f"{parent}.{_STATS[leaf]}"] = torch.from_numpy(
+            np.ascontiguousarray(arr.astype(np.float32)))
     for name, arr in _flatten(params):
         arr = arr.astype(np.float32)
         parent, _, leaf = name.rpartition(".")

@@ -77,8 +77,11 @@ def make_transducer_step_fns(model):
     carries the split form the ``pallas_joint`` route needs: ``enc_proj``
     (batched encoder projection), ``preact`` (the activation before the
     vocab head) and ``head`` (the ``ffn_out`` weight and bias, which K2
-    applies inside the kernel).
+    applies inside the kernel).  A predictor without a step (``embedding``,
+    ``conv``) raises NotImplementedError.
     """
+    model.check_steppable()
+
     def predictor_step(tokens, state):
         return model.predictor_step(tokens, state)
 

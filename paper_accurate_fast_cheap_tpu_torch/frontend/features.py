@@ -3,7 +3,8 @@
 povey window, power spectrum over a 512-point FFT, Kaldi mel banks from
 20 Hz to nyquist, natural log with a float-epsilon floor).  Written with
 ``torch.fft.rfft``.  ``dither`` adds ``dither * N(0, 1)`` noise to each
-frame before the DC removal, from the caller's ``torch.Generator``."""
+frame before the DC removal, from the caller's ``torch.Generator``.
+``mfcc`` is Kaldi's: fbank, an orthonormal DCT-II, cepstral liftering."""
 from __future__ import annotations
 
 import math
@@ -106,3 +107,33 @@ def fbank(waveform: torch.Tensor, **kw) -> torch.Tensor:
     """Kaldi fbank of one waveform (num_samples,) -> (frames, bins)."""
     lens = torch.tensor([waveform.shape[0]], device=waveform.device)
     return fbank_batch(waveform[None], lens, **kw)[0][0]
+
+
+def mfcc(waveform: torch.Tensor, num_mel_bins: int = 23, num_ceps: int = 13,
+         frame_length: int = 400, frame_shift: int = 160,
+         sample_rate: int = 16000, dither: float = 0.0, generator=None,
+         cepstral_lifter: float = 22.0, low_freq: float = 20.0,
+         high_freq: float = 0.0) -> torch.Tensor:
+    """Kaldi MFCC of one waveform (num_samples,) -> (frames, num_ceps):
+    the fbank's log-mel rows times the first ``num_ceps`` rows of the
+    orthonormal DCT-II, then scaled by 1 + (L / 2) sin(pi i / L) when the
+    lifter L > 0.  ``low_freq`` and ``high_freq`` are accepted and unused,
+    as in the JAX function (the fbank's banks span 20 Hz to nyquist)."""
+    lens = torch.tensor([waveform.shape[0]], device=waveform.device)
+    fb = fbank_batch(waveform[None], lens, num_mel_bins=num_mel_bins,
+                     frame_length=frame_length, frame_shift=frame_shift,
+                     sample_rate=sample_rate, dither=dither,
+                     generator=generator)[0][0]
+    n = num_mel_bins
+    j = np.arange(n)
+    dct = np.cos(np.pi / n * (j[None, :] + 0.5)
+                 * np.arange(num_ceps)[:, None]) * np.sqrt(2.0 / n)
+    dct[0] *= np.sqrt(0.5)
+    ceps = fb @ torch.tensor(dct.astype(np.float32), device=fb.device).T
+    if cepstral_lifter > 0:
+        i = np.arange(num_ceps)
+        lifter = 1.0 + 0.5 * cepstral_lifter * np.sin(
+            np.pi * i / cepstral_lifter)
+        ceps = ceps * torch.tensor(lifter.astype(np.float32),
+                                   device=fb.device)
+    return ceps

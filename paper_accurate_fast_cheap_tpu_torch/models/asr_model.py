@@ -3,11 +3,11 @@ the default ``model:`` of the configs).
 
 The loss is ``ctc_weight * ctc + (1 - ctc_weight) * att``, the attention
 branch on the (bi)transformer decoder with the reversed-label right decoder
-weighted by ``reverse_weight``.  The encoder is the conformer
-(``models/factory.py`` refuses the other families, ROADMAP Queue 1 item
-12b).  As in flax, the decoder's parameters exist only when the loss
-calls it: a ``decoder_conf`` with ``ctc_weight < 1`` (and its right half
-only for ``reverse_weight > 0``).
+weighted by ``reverse_weight``.  The encoder is any family of
+``models/encoder_registry.py`` (``encoder_type``); ``cat_embs`` reaches its
+language-specific blocks.  As in flax, the decoder's parameters exist only
+when the loss calls it: a ``decoder_conf`` with ``ctc_weight < 1`` (and its
+right half only for ``reverse_weight > 0``).
 """
 from __future__ import annotations
 
@@ -16,12 +16,12 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from paper_accurate_fast_cheap_tpu_torch.models.conformer import (
-    ConformerEncoder)
 from paper_accurate_fast_cheap_tpu_torch.models.ctc_head import (
     CTCHead, ctc_loss)
 from paper_accurate_fast_cheap_tpu_torch.models.decoder import (
     BiTransformerDecoder, attention_loss)
+from paper_accurate_fast_cheap_tpu_torch.models.encoder_registry import (
+    build_encoder, forward_encoder)
 from paper_accurate_fast_cheap_tpu_torch.ops.common import IGNORE_ID
 
 
@@ -32,7 +32,8 @@ class ASRModel(nn.Module):
                  lsm_weight: float = 0.1,
                  length_normalized_loss: bool = False,
                  sos: Optional[int] = None, eos: Optional[int] = None,
-                 ignore_id: int = IGNORE_ID, use_focal_ctc: bool = False):
+                 ignore_id: int = IGNORE_ID, use_focal_ctc: bool = False,
+                 encoder_type: str = "conformer"):
         super().__init__()
         enc_conf = dict(encoder_conf)
         enc_dim = enc_conf.get("output_size", 512)
@@ -45,7 +46,7 @@ class ASRModel(nn.Module):
         self.eos = vocab_size - 1 if eos is None else eos
         self.ignore_id = ignore_id
         self.use_focal_ctc = use_focal_ctc
-        self.encoder = ConformerEncoder(**enc_conf)
+        self.encoder = build_encoder(encoder_type, enc_conf)
         self.ctc = CTCHead(enc_dim, vocab_size)
         self.decoder = None
         if decoder_conf is not None and ctc_weight < 1.0:
@@ -54,10 +55,12 @@ class ASRModel(nn.Module):
                 with_right=reverse_weight > 0.0)
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
-                labels: torch.Tensor, label_lens: torch.Tensor):
+                labels: torch.Tensor, label_lens: torch.Tensor,
+                cat_embs: Optional[torch.Tensor] = None):
         """{"loss", "loss_ctc", "loss_att", "th_accuracy"}; dropout follows
         ``.train()``/``.eval()``."""
-        enc, enc_lens = self.encoder(feats, feat_lens)
+        enc_kw = {} if cat_embs is None else {"cat_embs": cat_embs}
+        enc, enc_lens = self.encoder(feats, feat_lens, **enc_kw)
         zero = torch.zeros((), device=enc.device)
         loss_ctc = zero
         if self.ctc_weight > 0.0:
@@ -78,9 +81,11 @@ class ASRModel(nn.Module):
     @torch.no_grad()
     def forward_encoder(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                         decoding_chunk_size: int = 0,
-                        num_decoding_left_chunks: int = -1):
-        return self.encoder(feats, feat_lens, decoding_chunk_size,
-                            num_decoding_left_chunks)
+                        num_decoding_left_chunks: int = -1,
+                        cat_embs: Optional[torch.Tensor] = None):
+        return forward_encoder(self.encoder, feats, feat_lens,
+                               decoding_chunk_size, num_decoding_left_chunks,
+                               cat_embs)
 
     @torch.no_grad()
     def ctc_logprobs(self, enc_out: torch.Tensor):

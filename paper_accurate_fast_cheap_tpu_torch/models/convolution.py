@@ -1,7 +1,10 @@
-"""Conformer convolution module and feed-forward (port of the JAX
-``models/convolution.py``; layer_norm).  The causal module (left pad
+"""Conformer convolution module, feed-forward and mixture-of-experts FFN
+(port of the JAX ``models/convolution.py``).  The causal module (left pad
 ``kernel - 1``) carries the streaming cache: the previous chunk's last
-``kernel - 1`` post-GLU frames.
+``kernel - 1`` post-GLU frames.  The module's ``batch_norm`` normalises with
+its running statistics (flax's ``batch_stats``, carried by
+``convert.state_dict_from_jax``), as the JAX module does at eval; it does
+not train (see :class:`BatchNorm`).
 
 ``PositionwiseFeedForward(impl="pallas")`` runs K6, the fused FFN kernel
 (``ops/ffn.py``), while dropout is inactive, as the JAX module does; the
@@ -16,23 +19,51 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from paper_accurate_fast_cheap_tpu_torch.models.layers import (
-    conv, dense, layer_norm)
+    conv, dense, lecun_normal_, layer_norm)
 from paper_accurate_fast_cheap_tpu_torch.ops.ffn import ACTIVATIONS, fused_ffn
 
 
+BATCH_NORM_TRAINING = (
+    "batch_norm trains no statistics: the JAX train step carries no "
+    "batch_stats collection, so a conv module with batch_norm runs at eval "
+    "only (its running mean and variance come from a converted checkpoint)")
+
+
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm(use_running_average=True, epsilon=1e-5)`` over the
+    last axis: (x - mean) / sqrt(var + eps) * weight + bias, in the
+    promoted dtype.  The running statistics are buffers without a batch
+    counter, so converted checkpoints load strictly; ``.train()`` raises."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(BATCH_NORM_TRAINING)
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        mean, var = self.running_mean.to(dt), self.running_var.to(dt)
+        y = (x.to(dt) - mean) * torch.rsqrt(var + self.eps)
+        return y * self.weight.to(dt) + self.bias.to(dt)
+
+
 class ConvolutionModule(nn.Module):
-    """pointwise(2C) -> GLU -> depthwise(k) -> LayerNorm -> SiLU ->
-    pointwise, with pad frames zeroed before and after.  ``causal`` pads
-    the depthwise conv by ``kernel - 1`` on the left (else (k - 1) / 2 on
-    each side)."""
+    """pointwise(2C) -> GLU -> depthwise(k) -> LayerNorm or BatchNorm ->
+    SiLU -> pointwise, with pad frames zeroed before and after.  ``causal``
+    pads the depthwise conv by ``kernel - 1`` on the left (else (k - 1) / 2
+    on each side)."""
 
     def __init__(self, channels: int, kernel_size: int = 31,
                  norm: str = "layer_norm", causal: bool = False):
         super().__init__()
-        if norm != "layer_norm":
-            raise NotImplementedError(
-                "the port's conv module has layer_norm; batch_norm waits for "
-                "ROADMAP Queue 1, item 12b")
+        if norm not in ("layer_norm", "batch_norm"):
+            raise ValueError(f"conv module norm {norm!r}: layer_norm or "
+                             "batch_norm")
         if not causal and (kernel_size - 1) % 2:
             raise ValueError("a non-causal conv module needs an odd kernel")
         self.causal = causal
@@ -42,7 +73,10 @@ class ConvolutionModule(nn.Module):
                                 padding=0 if causal
                                 else (kernel_size - 1) // 2,
                                 groups=channels)
-        self.LayerNorm_0 = nn.LayerNorm(channels, eps=1e-5)
+        if norm == "layer_norm":
+            self.LayerNorm_0 = nn.LayerNorm(channels, eps=1e-5)
+        else:
+            self.BatchNorm_0 = BatchNorm(channels)
         self.Dense_1 = nn.Linear(channels, channels)
 
     def forward(self, x: torch.Tensor,
@@ -69,7 +103,11 @@ class ConvolutionModule(nn.Module):
         elif self.causal:
             y = F.pad(y, (0, 0, self.lorder, 0))
         y = conv(self.Conv_0, y.transpose(1, 2)).transpose(1, 2)
-        y = F.silu(layer_norm(self.LayerNorm_0, y))
+        if hasattr(self, "LayerNorm_0"):
+            y = layer_norm(self.LayerNorm_0, y)
+        else:
+            y = self.BatchNorm_0(y)
+        y = F.silu(y)
         y = dense(self.Dense_1, y)
         if mask_pad is not None:
             y = torch.where(mask_pad[..., None], y, torch.zeros((), dtype=y.dtype,
@@ -107,3 +145,45 @@ class PositionwiseFeedForward(nn.Module):
                              self.activation)
         y = ACTIVATIONS[self.activation](dense(self.Dense_0, x))
         return dense(self.Dense_1, self.dropout(y))
+
+
+def top_k_lowest_index(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of the last axis, ties to
+    the lowest index, as ``jax.lax.top_k`` (a stable descending sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class MoEFFNLayer(nn.Module):
+    """Token-choice top-k mixture of experts with dense dispatch: the gate
+    (Linear, no bias) picks ``n_expert_per_token`` experts per frame (ties
+    to the lowest index), softmax over their logits gives the combine
+    weights, and every expert runs on every frame (``w1`` (E, D, H), ``w2``
+    (E, H, D), no biases, flax's layout)."""
+
+    def __init__(self, d_model: int, hidden: int, n_experts: int = 4,
+                 n_expert_per_token: int = 2, activation: str = "swish"):
+        super().__init__()
+        if activation not in ("swish", "relu", "gelu"):
+            raise NotImplementedError(f"moe activation {activation!r}")
+        self.activation = activation
+        self.n_experts, self.k = n_experts, n_expert_per_token
+        self.gate = nn.Linear(d_model, n_experts, bias=False)
+        self.w1 = nn.Parameter(torch.zeros(n_experts, d_model, hidden))
+        self.w2 = nn.Parameter(torch.zeros(n_experts, hidden, d_model))
+
+    def reset_parameters_from(self, g: torch.Generator) -> None:
+        # flax lecun_normal on (E, in, out): fan_in = in * E
+        for w in (self.w1, self.w2):
+            lecun_normal_(w, w.shape[0] * w.shape[1], g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        logits = dense(self.gate, x)                          # (B, T, E)
+        topv, topi = top_k_lowest_index(logits, self.k)
+        weights = torch.softmax(topv, dim=-1)
+        comb = torch.zeros_like(logits).scatter_add_(-1, topi, weights)
+        dt = torch.promote_types(x.dtype, self.w1.dtype)
+        h = ACTIVATIONS[self.activation](
+            torch.einsum("btd,edh->bteh", x.to(dt), self.w1.to(dt)))
+        out = torch.einsum("bteh,ehd->bted", h, self.w2.to(dt))
+        return torch.einsum("bted,bte->btd", out, comb.to(dt))

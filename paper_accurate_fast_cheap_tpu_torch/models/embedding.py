@@ -1,12 +1,14 @@
 """Positional encodings (port of ``PositionalEncoding``,
-``RelPositionalEncoding`` and ``NoPositionalEncoding`` of the JAX
-``models/embedding.py``)."""
+``RelPositionalEncoding``, ``NoPositionalEncoding`` and
+``LearnablePositionalEncoding`` of the JAX ``models/embedding.py``)."""
 from __future__ import annotations
 
 import math
 
 import torch
 import torch.nn as nn
+
+from paper_accurate_fast_cheap_tpu_torch.models.layers import normal_
 
 
 def sinusoid_positions(offset: int, T: int, d_model: int,
@@ -69,3 +71,24 @@ class NoPositionalEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor, offset: int = 0):
         return self.dropout(x), x.new_zeros(1, x.shape[1], self.d_model)
+
+
+class LearnablePositionalEncoding(nn.Module):
+    """Trained absolute positions: returns (x * sqrt(d) + P[offset:offset+T],
+    that slice as (1, T, d)); ``pos_embedding`` (max_len, d) starts as
+    N(0, 0.02), flax's init; dropout on the first output only."""
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.1,
+                 max_len: int = 5000):
+        super().__init__()
+        self.d_model = d_model
+        self.pos_embedding = nn.Parameter(torch.zeros(max_len, d_model))
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def reset_parameters_from(self, g: torch.Generator) -> None:
+        normal_(self.pos_embedding, 0.02, g)
+
+    def forward(self, x: torch.Tensor, offset: int = 0):
+        pos = self.pos_embedding[None, offset: offset + x.shape[1]]
+        scale = torch.sqrt(torch.tensor(float(self.d_model), dtype=x.dtype))
+        return self.dropout(x * scale.to(x.device) + pos), pos

@@ -1,9 +1,15 @@
 """Model factory from WeNet-style config dicts (port of the JAX
-``models/factory.py`` for ``model: transducer`` with ``predictor: rnn`` and
-``model: asr_model``, both on ``encoder: conformer`` with any attention of
-the JAX registry (``mamba_att`` included) and a causal or non-causal conv
-module, with an optional ``decoder: transformer`` or ``bitransformer``;
-other families wait for later slices)."""
+``models/factory.py``): ``model: transducer`` (predictor ``rnn``,
+``embedding`` or ``conv``) and ``model: asr_model``, on every ``encoder:``
+of the JAX registry (``models/encoder_registry.py``: conformer and
+lora_conformer with any attention of the JAX registry, transformer,
+branchformer, e_branchformer, squeezeformer, efficient_conformer), with an
+optional ``decoder: transformer`` or ``bitransformer``.  The encoder keys
+are JAX's: a family's own keys outside them (``reduce_idx``,
+``stride_layers``, ``merge_method``, ``num_langs``, ...) take their
+defaults from a YAML; the language-specific blocks are built by passing
+``encoder_conf=dict(..., num_langs=K)`` to the model classes.  Other
+``model:`` families wait for ROADMAP Queue 1, item 13."""
 from __future__ import annotations
 
 import logging
@@ -14,7 +20,8 @@ import torch
 from paper_accurate_fast_cheap_tpu_torch import resolve_device
 from paper_accurate_fast_cheap_tpu_torch.models.asr_model import ASRModel
 from paper_accurate_fast_cheap_tpu_torch.models.layers import init_default
-from paper_accurate_fast_cheap_tpu_torch.models.transducer import Transducer
+from paper_accurate_fast_cheap_tpu_torch.models.transducer import (
+    PREDICTORS, Transducer)
 
 # encoder_conf keys that map 1:1 onto ConformerEncoder fields
 _ENCODER_KEYS = {
@@ -63,17 +70,13 @@ def init_model(config: Dict[str, Any], vocab_size: int, input_dim: int = 80,
     dev = resolve_device(device)
     model_type = config.get("model", "asr_model")
     encoder_type = config.get("encoder", "conformer")
+    predictor = config.get("predictor", "rnn")
     if model_type not in ("transducer", "asr_model") or (
-            model_type == "transducer"
-            and config.get("predictor", "rnn") != "rnn"):
+            model_type == "transducer" and predictor not in PREDICTORS):
         raise NotImplementedError(
-            "the port builds model: transducer (predictor: rnn) and model: "
-            "asr_model; other families wait for ROADMAP Queue 1, item 13")
-    if encoder_type != "conformer":
-        raise NotImplementedError(
-            f"encoder {encoder_type!r}: the port builds the conformer "
-            "encoder only; other families wait for ROADMAP Queue 1, item "
-            "12b")
+            "the port builds model: transducer (predictor: rnn, embedding "
+            "or conv) and model: asr_model; other families wait for ROADMAP "
+            "Queue 1, item 13")
     enc_conf = encoder_conf_from_yaml(config.get("encoder_conf", {}),
                                       input_dim)
     model_conf = config.get("model_conf", {})
@@ -97,12 +100,13 @@ def init_model(config: Dict[str, Any], vocab_size: int, input_dim: int = 80,
         joint_conf.pop("enc_output_size", None)
         joint_conf.pop("pred_output_size", None)
         pred_conf = dict(config.get("predictor_conf", {}))
-        # keys the reference's predictor takes but this one fixes (lstm,
-        # bias)
+        # keys the reference's RNN predictor takes but this one fixes
+        # (lstm, bias)
         for k in ("rnn_type", "bias"):
             pred_conf.pop(k, None)
         model = Transducer(
             vocab_size=vocab_size, encoder_conf=enc_conf,
+            encoder_type=encoder_type, predictor=predictor,
             predictor_conf=pred_conf, joint_conf=joint_conf,
             blank_id=config.get("ctc_conf", {}).get("ctc_blank_id", 0),
             transducer_weight=model_conf.get("transducer_weight", 0.3),
@@ -112,6 +116,7 @@ def init_model(config: Dict[str, Any], vocab_size: int, input_dim: int = 80,
     else:
         model = ASRModel(
             vocab_size=vocab_size, encoder_conf=enc_conf,
+            encoder_type=encoder_type,
             ctc_weight=model_conf.get("ctc_weight", 0.3),
             use_focal_ctc=config.get("ctc_conf", {}).get("use_focal_loss",
                                                          False),

@@ -1,5 +1,8 @@
-"""LSTM transducer predictor (port of the JAX ``models/predictor.py``
-``RNNPredictor``).
+"""Transducer predictors (port of the JAX ``models/predictor.py``):
+``RNNPredictor`` (LSTM), ``EmbeddingPredictor`` and ``ConvPredictor``.
+As in JAX, only the LSTM has ``init_state``/``forward_step``: the other two
+train through the transducer loss and no search can step them
+(``NO_STEP``).
 
 Decode: each step gathers the embeddings of the last tokens and runs every
 LSTM layer and the output projection through K3 (``ops/lstm_step.py``), the
@@ -15,9 +18,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from paper_accurate_fast_cheap_tpu_torch.models.layers import (
-    dense, orthogonal_)
+    conv, dense, layer_norm, normal_, orthogonal_)
 from paper_accurate_fast_cheap_tpu_torch.ops.lstm_step import (
     lstm_predictor_step)
 
@@ -96,3 +100,58 @@ class RNNPredictor(nn.Module):
             x, state[0], state[1], layers, self.projection.weight,
             self.projection.bias)
         return out, (hs, cs)
+
+
+NO_STEP = ("the {} predictor has no init_state/forward_step (nor has the JAX "
+           "one): it trains through the transducer loss, and no search can "
+           "step it; decode with predictor: rnn")
+
+
+class EmbeddingPredictor(nn.Module):
+    """Stateless n-gram predictor: the last ``history_size + 1`` token
+    embeddings (left-padded with zeros) weighted by ``pos_weight`` (n, E)
+    and summed, then LayerNorm and ``projection``."""
+
+    def __init__(self, vocab_size: int, embed_size: int = 640,
+                 output_size: int = 640, history_size: int = 2,
+                 embed_dropout: float = 0.1):
+        super().__init__()
+        self.n = history_size + 1
+        self.embed = nn.Embedding(vocab_size, embed_size)
+        self.embed_dropout = nn.Dropout(embed_dropout)
+        self.pos_weight = nn.Parameter(torch.zeros(self.n, embed_size))
+        self.LayerNorm_0 = nn.LayerNorm(embed_size, eps=1e-5)
+        self.projection = nn.Linear(embed_size, output_size)
+
+    def reset_parameters_from(self, g: torch.Generator) -> None:
+        normal_(self.pos_weight, 1.0, g)
+
+    def forward(self, ys: torch.Tensor) -> torch.Tensor:
+        """ys (B, U) token ids (blank-prepended) -> (B, U, output_size)."""
+        emb = self.embed_dropout(self.embed(ys.long()))
+        padded = F.pad(emb, (0, 0, self.n - 1, 0))
+        win = padded.unfold(1, self.n, 1)                 # (B, U, E, n)
+        out = torch.einsum("buen,ne->bue", win,
+                           self.pos_weight.to(win.dtype))
+        return dense(self.projection, layer_norm(self.LayerNorm_0, out))
+
+
+class ConvPredictor(nn.Module):
+    """Causal conv over the token embeddings (width ``kernel_size``, left
+    pad k - 1) -> LayerNorm -> ReLU."""
+
+    def __init__(self, vocab_size: int, embed_size: int = 640,
+                 output_size: int = 640, kernel_size: int = 3,
+                 embed_dropout: float = 0.1):
+        super().__init__()
+        self.lorder = kernel_size - 1
+        self.embed = nn.Embedding(vocab_size, embed_size)
+        self.embed_dropout = nn.Dropout(embed_dropout)
+        self.conv = nn.Conv1d(embed_size, output_size, kernel_size)
+        self.LayerNorm_0 = nn.LayerNorm(output_size, eps=1e-5)
+
+    def forward(self, ys: torch.Tensor) -> torch.Tensor:
+        emb = self.embed_dropout(self.embed(ys.long()))
+        y = F.pad(emb, (0, 0, self.lorder, 0)).transpose(1, 2)
+        y = conv(self.conv, y).transpose(1, 2)
+        return F.relu(layer_norm(self.LayerNorm_0, y))

@@ -9,6 +9,13 @@ RNN-T lattice's joint computed in T-chunks of ``RNNT_T_CHUNK`` frames
 parameters only when its loss calls it, the decoder is built only for a
 ``decoder_conf`` with ``attention_weight > 0`` (its right half only for
 ``reverse_weight > 0``).
+
+The encoder comes from ``models/encoder_registry.build_encoder``
+(``encoder_type``) and the predictor from ``PREDICTORS`` (``predictor``):
+the LSTM, or the ``embedding`` and ``conv`` predictors, which train but
+have no step for the searches (``predictor.NO_STEP``).  ``cat_embs``
+(B, K) reaches the encoder's language-specific blocks in ``forward`` and
+``forward_encoder`` (chunkable encoders only take it, as in JAX).
 """
 from __future__ import annotations
 
@@ -17,14 +24,15 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from paper_accurate_fast_cheap_tpu_torch.models.conformer import (
-    ConformerEncoder)
 from paper_accurate_fast_cheap_tpu_torch.models.ctc_head import (
     CTCHead, ctc_loss)
 from paper_accurate_fast_cheap_tpu_torch.models.decoder import (
     BiTransformerDecoder, attention_loss)
+from paper_accurate_fast_cheap_tpu_torch.models.encoder_registry import (
+    build_encoder, forward_encoder)
 from paper_accurate_fast_cheap_tpu_torch.models.joint import TransducerJoint
-from paper_accurate_fast_cheap_tpu_torch.models.predictor import RNNPredictor
+from paper_accurate_fast_cheap_tpu_torch.models.predictor import (
+    NO_STEP, ConvPredictor, EmbeddingPredictor, RNNPredictor)
 from paper_accurate_fast_cheap_tpu_torch.ops import rnnt
 from paper_accurate_fast_cheap_tpu_torch.ops.common import (
     IGNORE_ID, add_blank)
@@ -32,6 +40,12 @@ from paper_accurate_fast_cheap_tpu_torch.ops.common import (
 # encoder frames per chunk of the joint in the RNN-T loss (the JAX
 # Transducer's rnnt_t_chunk)
 RNNT_T_CHUNK = 16
+
+PREDICTORS = {
+    "rnn": RNNPredictor,
+    "embedding": EmbeddingPredictor,
+    "conv": ConvPredictor,
+}
 
 
 class Transducer(nn.Module):
@@ -44,7 +58,8 @@ class Transducer(nn.Module):
                  reverse_weight: float = 0.3, lsm_weight: float = 0.1,
                  length_normalized_loss: bool = False,
                  sos: Optional[int] = None, eos: Optional[int] = None,
-                 ignore_id: int = IGNORE_ID):
+                 ignore_id: int = IGNORE_ID, encoder_type: str = "conformer",
+                 predictor: str = "rnn"):
         super().__init__()
         enc_conf = dict(encoder_conf)
         pred_conf = dict(predictor_conf or {})
@@ -64,8 +79,10 @@ class Transducer(nn.Module):
         self.sos = vocab_size - 1 if sos is None else sos
         self.eos = vocab_size - 1 if eos is None else eos
         self.ignore_id = ignore_id
-        self.encoder = ConformerEncoder(**enc_conf)
-        self.predictor = RNNPredictor(vocab_size=vocab_size, **pred_conf)
+        self.encoder = build_encoder(encoder_type, enc_conf)
+        self.predictor_type = predictor
+        self.predictor = PREDICTORS[predictor](vocab_size=vocab_size,
+                                               **pred_conf)
         self.joint = TransducerJoint(vocab_size=vocab_size, **joint_conf)
         self.ctc = CTCHead(enc_dim, vocab_size)
         self.decoder = None
@@ -77,10 +94,12 @@ class Transducer(nn.Module):
     # ---- training ----
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
-                labels: torch.Tensor, label_lens: torch.Tensor):
+                labels: torch.Tensor, label_lens: torch.Tensor,
+                cat_embs: Optional[torch.Tensor] = None):
         """The combined loss: {"loss", "loss_rnnt", "loss_ctc", "loss_att",
         "th_accuracy"}.  Dropout follows ``.train()``/``.eval()``."""
-        enc, enc_lens = self.encoder(feats, feat_lens)
+        enc_kw = {} if cat_embs is None else {"cat_embs": cat_embs}
+        enc, enc_lens = self.encoder(feats, feat_lens, **enc_kw)
         ys_blank = add_blank(labels, label_lens, self.blank_id)
         pred_out = self.predictor(ys_blank)
         enc_p = self.joint.project_enc(enc)
@@ -116,15 +135,23 @@ class Transducer(nn.Module):
     @torch.no_grad()
     def forward_encoder(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                         decoding_chunk_size: int = 0,
-                        num_decoding_left_chunks: int = -1):
-        return self.encoder(feats, feat_lens, decoding_chunk_size,
-                            num_decoding_left_chunks)
+                        num_decoding_left_chunks: int = -1,
+                        cat_embs: Optional[torch.Tensor] = None):
+        return forward_encoder(self.encoder, feats, feat_lens,
+                               decoding_chunk_size, num_decoding_left_chunks,
+                               cat_embs)
 
     @torch.no_grad()
     def ctc_logprobs(self, enc_out: torch.Tensor):
         return self.ctc.log_probs(enc_out)
 
+    def check_steppable(self) -> None:
+        """Raise unless the predictor has a step for the searches."""
+        if not hasattr(self.predictor, "forward_step"):
+            raise NotImplementedError(NO_STEP.format(self.predictor_type))
+
     def predictor_init_state(self, batch_size: int):
+        self.check_steppable()
         return self.predictor.init_state(batch_size)
 
     @torch.no_grad()
@@ -155,3 +182,4 @@ class Transducer(nn.Module):
                              "(decoder: None or attention_weight 0)")
         return self.decoder(enc, enc_lens, ys_in, ys_lens, r_ys_in,
                             reverse_weight)
+

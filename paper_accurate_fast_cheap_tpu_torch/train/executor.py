@@ -3,7 +3,8 @@ JAX ``train/executor.py``).
 
 Per batch: features on the device (fbank, CMVN and, in training, dither,
 spec_sub and SpecAugment from the executor's ``torch.Generator`` on that
-device), the train step, frames-seen accounting; every ``log_interval``
+device; a batch's ``cat_embs`` rides along for the language-specific
+encoder blocks), the train step, frames-seen accounting; every ``log_interval``
 batches the loss and metrics are read on the host and logged (the loss is
 not read between), and every ``save_interval`` steps a mid-epoch cv and a
 snapshot (with the optimizer every ``save_optimizer_every``-th snapshot or
@@ -57,10 +58,6 @@ class Executor:
         self._seeds = torch.Generator().manual_seed(seed)
 
     def _prepare(self, batch: Dict[str, np.ndarray], train: bool):
-        if "cat_embs" in batch:
-            raise NotImplementedError(
-                "category embeddings feed the language-specific encoder "
-                "layers (ROADMAP Queue 1, item 12b)")
         feats, feat_lens = self.featurize(
             torch.from_numpy(batch["wavs"]),
             torch.from_numpy(batch["wav_lens"]), train=train,
@@ -68,6 +65,10 @@ class Executor:
         out = (feats, feat_lens,
                torch.from_numpy(batch["labels"]).to(self.device),
                torch.from_numpy(batch["label_lens"]).to(self.device))
+        if "cat_embs" in batch:
+            # the LSL conditioning vector, the model's fifth argument
+            out = out + (torch.from_numpy(
+                np.asarray(batch["cat_embs"], np.float32)).to(self.device),)
         a = self.accum_steps
         if train and a > 1:
             B = out[0].shape[0]

@@ -147,12 +147,11 @@ def test_bitransformer_decoder(reverse_weight):
 
 
 def test_bridge_refuses_unknown_leaves():
-    """A flax leaf the port has no module for (here LoRA's ``lora_A``,
-    not ported; Mamba-2's ``A_log``, the example before Mamba-2 was
-    ported, now converts) raises instead of being copied."""
-    tree = {"encoder": {"layer_0": {"LoRADense_0": {
-        "lora_A": np.zeros((D, 4), np.float32)}}}}
-    with pytest.raises(KeyError, match="lora_A"):
+    """A flax leaf the port has no module for (here the wav2vec2 model's
+    ``mask_emb``, not ported; LoRA's ``lora_A`` and Mamba-2's ``A_log``, the
+    earlier examples, now convert) raises instead of being copied."""
+    tree = {"mask_emb": np.zeros((D,), np.float32)}
+    with pytest.raises(KeyError, match="mask_emb"):
         state_dict_from_jax(tree)
 
 

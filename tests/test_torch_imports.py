@@ -42,8 +42,9 @@ def test_port_imports_no_jax():
     # chunk masks, the scoring and load-bench tools, the training CLI, the
     # RTF harnesses, the searches' biasing and attention beam, the align,
     # fbank, CMVN and embedding tools, the codecs and their C++ shims, the
-    # shard and data tools, the hub, the export tool and the recipe's
-    # drivers are among those imported
+    # shard and data tools, the hub, the export tool, the recipe's drivers,
+    # the encoder families and their registry, the subsamplings, the
+    # predictors and LoRA are among those imported
     assert {f"{PKG}.{m}" for m in (
         "ops.ffn", "ops.rnnt", "train.schedulers", "train.train_step",
         "bin.train_bench", "ops.multi_product", "ops.losses",
@@ -69,7 +70,10 @@ def test_port_imports_no_jax():
         "examples.gigaspeech.local.run_accuracy_loop",
         "examples.gigaspeech.local.run_impl_matrix",
         "examples.gigaspeech.local.run_lf_sweep",
-        "examples.gigaspeech.local.run_rtf_sweep")} <= set(mods)
+        "examples.gigaspeech.local.run_rtf_sweep", "models.branchformer",
+        "models.squeezeformer", "models.efficient_conformer",
+        "models.encoder_registry", "models.subsampling", "models.predictor",
+        "models.lora", "frontend.features")} <= set(mods)
 
 
 def test_port_sources_do_not_name_the_jax_package():

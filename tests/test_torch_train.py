@@ -161,8 +161,10 @@ def test_dropout_follows_train_mode(tiny):
 def test_attention_decoder_loss_raises():
     """The attention decoder's loss is ported: a ``decoder:`` config with
     attention weight > 0 trains (its values are held to JAX in
-    ``tests/test_torch_decoder.py``); what still raises is an encoder family
-    the port does not build (ROADMAP Queue 1 item 12)."""
+    ``tests/test_torch_decoder.py``), on the conformer and on the other
+    encoder families too (here the branchformer, whose values are held to
+    JAX in ``tests/test_torch_encoder_families.py``); what still raises is
+    a model family the port does not build (ROADMAP Queue 1 item 13)."""
     conf = dict(CONFIG, decoder="bitransformer",
                 decoder_conf={"attention_heads": 2, "linear_units": 32,
                               "num_blocks": 1, "r_num_blocks": 1},
@@ -172,8 +174,14 @@ def test_attention_decoder_loss_raises():
     out = m(feats, flens, labels, llens)
     assert float(out["loss_att"].detach()) > 0
     assert np.isfinite(float(out["loss"].detach()))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 12"):
-        t_factory.init_model(dict(conf, encoder="branchformer"), VOCAB, 80,
+    bm, _ = t_factory.init_model(dict(conf, encoder="branchformer"), VOCAB,
+                                 80, device="cpu")
+    assert type(bm.encoder).__name__ == "BranchformerEncoder"
+    out = bm(feats, flens, labels, llens)
+    assert float(out["loss_att"].detach()) > 0
+    assert np.isfinite(float(out["loss"].detach()))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
+        t_factory.init_model(dict(conf, model="k2_model"), VOCAB, 80,
                              device="cpu")
 
 
