@@ -113,8 +113,9 @@ Phases, each fatal on failure (no phase is skipped or caught):
      Model.from_dir gives, the name again and the URL resolving to the
      same cache directory;
  25. tools/export_model: torch.export of the flagship's encoder + CTC at 1
-     x 2051 frames, f32, to bytes and back; 24 pafc_torch::wkv6_fwd nodes,
-     the loaded program equal to eager, K1 24 launches a call;
+     x 2051 frames, f32, 6 of its 12 blocks, to bytes and back; 12
+     pafc_torch::wkv6_fwd nodes, the loaded program equal to eager, K1 12
+     launches a call;
  26. the recipe's run_accuracy_loop at its defaults (make_shard ->
      compute_cmvn_stats -> recognize_wav + WER at init -> bin/train 20
      epochs on merged ~20 s utterances -> recognize_wav + WER): WER must
@@ -123,8 +124,9 @@ Phases, each fatal on failure (no phase is skipped or caught):
  28. run_lf_sweep over the loop's long-form episodes as FLACs at chunk
      sizes 2000 and 4000;
  29. run_rtf_sweep: one bin/encoder_rtf subprocess per point, the bi-RWKV
-     and MHA bench YAMLs at chunk 9000, batch 4 (chunk 2000 was cut to
-     keep the script inside its limit on a slow host);
+     bench YAML at chunk 9000, batch 4 (chunk 2000 and the MHA YAML's
+     point, which phase 19's encoder_rtf also measures, were cut to keep
+     the script inside its limit on a slow host);
  30. the LSL flagship (num_langs 2: blocks 0 and 11 language-specific,
      built from encoder_conf as the JAX package's tests build it): a small
      f32 reference with cat_embs one-hot and None, the card against the
@@ -133,7 +135,8 @@ Phases, each fatal on failure (no phase is skipped or caught):
      [0.5, 0.5] in turn, K1 28 a forward, K2 2248 and K3 2249 exactly;
  31. each other encoder family (transformer, branchformer,
      e_branchformer, squeezeformer, efficient_conformer) under the
-     long-form conformer YAML's widths with the flagship's head: the card
+     long-form conformer YAML's widths (6 of its 12 blocks, to keep the
+     script inside its limit) with the flagship's head: the card
      against the CPU at 2 x 3 s in f32 (within 1e-3), then encoder + CTC
      at 32 x 90 s in bf16, one warm and one timed call, with peak memory;
  32. recognize_wav through the factory on an E-Branchformer transducer
@@ -141,6 +144,25 @@ Phases, each fatal on failure (no phase is skipped or caught):
      no K1); then the standard flagship with --verbatimicity 1.0, its TXT
      and CTM equal to phase 23's byte for byte (a model from a config has
      no LSL blocks);
+ 33. the other families' training losses on the flagship's encoder:
+     BiTransducer, CTL (with the paper YAML's decoder), Paraformer,
+     wav2vec2, w2v-BERT, BestRQ and teacher-student (a second seeded
+     flagship as the teacher), first card against CPU at 2 blocks in f32
+     (loss within 1e-4 relative, gradient norm within 1e-3), then one
+     forward + backward each at B4 x 1500 frames x 40 labels, mixed
+     precision, K1 exactly 24 x the encoder passes (24, 48 or 72), with
+     ms and peak memory; the context adaptor's forward on the encoder's
+     taps (K1 24);
+ 34. the five ESPnet transducer searches (default, TSD, ALSD, NSC, mAES)
+     at beam 4, f32: card against CPU at 2 blocks on 3 s (n-best
+     identical, scores within 1e-4), then on the flagship on 20 s (K1 24),
+     and on its first 5 s default and mAES with a seeded ARPA 3-gram and
+     default with an LG scorer over a seeded lexicon; K3 equals each
+     search's predictor calls;
+ 35. Whisper base on 30 s (whisper_log_mel, greedy to 64 tokens, card
+     against CPU tokens in f32), and joint CTC/attention decoding and
+     HLG rescoring (the CTC fallback: no k2) with the paper's model on
+     10 s;
 then one JSON line with every kernel's numbers and, last, the result line.
 K1 is also held and timed at the streaming call (8 x 16 x 8 x 64, the
 state in and out, bf16) in phase 3.
@@ -3809,9 +3831,11 @@ FMT_WINDOWS = 2          # the formats phase's WAV: 2 CLI windows (180 s)
 LOOP_LF_CHUNKS = "2000,4000"
 # the accuracy loop's decode weights (its run_accuracy_loop defaults)
 LOOP_WEIGHTS = ("--ctc_weight", "0.1", "--transducer_weight", "0.9")
-RTF_SWEEP_MODELS = "rwkv_bi_12L,mha_12L"
-# the paper's long-form point only: chunk 2000 (launch-bound, its 1/RTF
-# swings with the host) was cut to keep the script inside its time limit
+# the bi-RWKV's long-form point only: chunk 2000 (launch-bound, its 1/RTF
+# swings with the host) and the MHA YAML's point (phase 19's encoder_rtf
+# measures it at the same batch and chunk) were cut to keep the script
+# inside its time limit
+RTF_SWEEP_MODELS = "rwkv_bi_12L"
 RTF_SWEEP_CHUNKS = "9000"
 
 
@@ -4037,19 +4061,24 @@ def phase_hub(work: str, paths) -> bool:
 
 
 EXPORT_FRAMES = 2051
+# the exported encoder's depth: 6 of the flagship's 12 blocks (cut to make
+# room for phases 33-35; the widths stay)
+EXPORT_BLOCKS = 6
 
 
 def phase_export() -> bool:
-    """tools/export_model on the standard flagship at full width, f32:
-    torch.export of encoder + CTC at 1 x 2051 x 80, written to bytes and
-    loaded back; the graph holds K1 as pafc_torch::wkv6_fwd (24 nodes),
-    the loaded program's log-probs equal eager's, and each call launches
-    K1 24 times, as eager does."""
+    """tools/export_model on the standard flagship at full width and
+    EXPORT_BLOCKS deep, f32: torch.export of encoder + CTC at 1 x 2051 x
+    80, written to bytes and loaded back; the graph holds K1 as
+    pafc_torch::wkv6_fwd (2 a block), the loaded program's log-probs equal
+    eager's, and each call launches K1 as often as eager does."""
     import torch
 
     from paper_accurate_fast_cheap_tpu_torch.tools import export_model
 
-    model = build_model(seed=1, label="flagship (export, f32)").eval()
+    model = build_model(config=dict(CONFIG, encoder_conf=dict(
+        FLAGSHIP_ENCODER, num_blocks=EXPORT_BLOCKS)), seed=1,
+        label=f"flagship, {EXPORT_BLOCKS} blocks (export, f32)").eval()
     t0 = time.perf_counter()
     blob = export_model.export_encoder_ctc(model, frames=EXPORT_FRAMES)
     export_s = time.perf_counter() - t0
@@ -4076,13 +4105,14 @@ def phase_export() -> bool:
         ms = {"exported": cuda_time_ms(lambda: fn(feats, lens), 5),
               "eager": cuda_time_ms(lambda: model.ctc_logprobs(
                   model.forward_encoder(feats, lens)[0]), 5)}
-    want = _want(wkv6_fwd=24)
-    good = (n_op == 24 and counts["exported"] == want
+    want = _want(wkv6_fwd=2 * EXPORT_BLOCKS)
+    good = (n_op == 2 * EXPORT_BLOCKS and counts["exported"] == want
             and counts["eager"] == want and bool(torch.equal(elens, e_lens))
             and tuple(logp.shape) == (
                 1, ((EXPORT_FRAMES - 1) // 2 - 1) // 2, VOCAB)
             and bool(torch.isfinite(logp).all()) and err <= 1e-5)
-    log(f"export (flagship f32, 1 x {EXPORT_FRAMES}): torch.export "
+    log(f"export (flagship f32, {EXPORT_BLOCKS} blocks, 1 x "
+        f"{EXPORT_FRAMES}): torch.export "
         f"{export_s:.1f} s, {len(blob) / 1e6:.1f} MB, load {load_s:.1f} s, "
         f"wkv6_fwd nodes {n_op}; log-probs {tuple(logp.shape)} max |exported"
         f" - eager| {err:.3e}; ms a call exported {ms['exported']:.3f}, "
@@ -4341,16 +4371,23 @@ def phase_lsl(rng, batch):
     return ok and ref_ok, counts, stages
 
 
+# phase 31's depth: 6 of the long-form YAML's 12 blocks (cut to make room
+# for phases 33-35; the widths stay)
+FAMILY_BLOCKS = 6
+
+
 def family_config(family: str) -> dict:
     """The long-form conformer YAML's encoder under ``encoder: family``
     (the registry keeps JAX's keys of that family; its own keys take their
-    defaults) with the flagship's predictor and joint."""
-    return dict(attention_config(), encoder=family)
+    defaults), cut to FAMILY_BLOCKS, with the flagship's predictor and
+    joint."""
+    return dict(attention_config(num_blocks=FAMILY_BLOCKS), encoder=family)
 
 
 def phase_families(rng, batch, flagship_stages) -> bool:
     """(b) Each family of FAMILIES at the long-form conformer YAML's widths
-    (d 512, 8 heads, 2048 units, 12 blocks, kernel 31, conv2d): the card
+    (d 512, 8 heads, 2048 units, kernel 31, conv2d; FAMILY_BLOCKS of its
+    12 blocks): the card
     against the CPU at a small f32 input (encoder and CTC within 1e-3),
     then encoder + CTC at ``batch`` x 90 s, bf16, one warm call and one
     timed call, with peak memory; no kernel runs on these paths (their
@@ -4371,7 +4408,8 @@ def phase_families(rng, batch, flagship_stages) -> bool:
     ok = True
     for i, family in enumerate(FAMILIES):
         model = build_model(config=family_config(family), seed=50 + i,
-                            label=f"{family} (long-form YAML widths)")
+                            label=f"{family} (long-form YAML widths, "
+                            f"{FAMILY_BLOCKS} blocks)")
         ref = {}
         for where, dev in (("card", "cuda"), ("host", "cpu")):
             m = model if where == "card" else copy.deepcopy(model).to("cpu")
@@ -4470,6 +4508,525 @@ def phase_family_cli(work: str, paths, card: str) -> bool:
         f"equal the run without the flag byte for byte: {same} "
         f"{'ok' if good else 'FAIL'}")
     return ok and good
+
+
+# Phases 33-35: the other model families and searches at the flagship's
+# width (its encoder, its 2 x 640 LSTM predictor and 640 joint, V 5002).
+FAM_BATCH, FAM_FRAMES, FAM_LABELS = 4, 1500, 40
+# encoder passes a training step: K1 runs 24 times a pass
+FAM_PASSES = {"bitransducer": 1, "ctl": 2, "paraformer": 1, "wav2vec2": 1,
+              "w2vbert": 2, "bestrq": 1, "teacher_student": 3}
+ESP_SEARCHES = ("default", "tsd", "alsd", "nsc", "maes")
+ESP_BEAM = 4
+ESP_LM_SECONDS = 5    # the LM-fused runs take the utterance's first 5 s
+WHISPER_SOT = (50258, 50259, 50359, 50363)   # sot, en, transcribe, no ts
+WHISPER_EOT = 50257
+WHISPER_TOKENS = 64
+
+
+def build_families(blocks: int = 0, seed: int = 80):
+    """(name, model, teacher or None) for every phase 33 family on the
+    flagship's encoder, on the CPU, weights from seeds, one at a time;
+    ``blocks`` cuts the depth of the f32 reference, whose WKV then runs in
+    f32.  CTL's ASR model carries the paper YAML's bitransformer decoder,
+    the teacher-student pair is the flagship transducer twice."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.models import (
+        bitransducer, ctl_model, factory, paraformer, ssl_bestrq,
+        ssl_w2vbert, ssl_wav2vec2)
+    from paper_accurate_fast_cheap_tpu_torch.models.layers import (
+        init_default)
+
+    enc_yaml = dict(FLAGSHIP_ENCODER)
+    if blocks:
+        enc_yaml.update(num_blocks=blocks, rwkv_do_bfloat16=False)
+    enc = factory.encoder_conf_from_yaml(enc_yaml, 80)
+    asr = dict(vocab_size=VOCAB, encoder_conf=enc, ctc_weight=0.3,
+               reverse_weight=0.3, decoder_conf=paper_config()[
+                   "decoder_conf"])
+    builders = {
+        "bitransducer": lambda: bitransducer.BiTransducer(
+            VOCAB, enc, predictor_conf=CONFIG["predictor_conf"],
+            joint_conf=CONFIG["joint_conf"]),
+        "ctl": lambda: ctl_model.CTLModel(asr, chunk_size=16),
+        "paraformer": lambda: paraformer.Paraformer(VOCAB, enc),
+        "wav2vec2": lambda: ssl_wav2vec2.Wav2Vec2Model(enc),
+        "w2vbert": lambda: ssl_w2vbert.W2VBertModel(enc),
+        "bestrq": lambda: ssl_bestrq.BestRQModel(enc, input_size=80),
+    }
+    for i, (name, build) in enumerate(builders.items()):
+        m = build()
+        init_default(m, torch.Generator().manual_seed(seed + i))
+        yield name, m, None
+    conf = dict(CONFIG, encoder_conf=enc_yaml)
+    student, teacher = (factory.init_model(
+        conf, VOCAB, 80, device="cpu",
+        generator=torch.Generator().manual_seed(seed + k))[0]
+        for k in (10, 11))
+    yield "teacher_student", student, teacher
+
+
+def family_batch(rng, B: int, frames: int, labels: int):
+    """Random (feats, lens, labels, label_lens) on the CPU, f32 features,
+    the last row 3/4 long."""
+    import torch
+
+    feats = torch.from_numpy(rng.randn(B, frames, 80).astype(np.float32))
+    lens = torch.full((B,), frames, dtype=torch.int64)
+    lens[-1] = frames * 3 // 4
+    ys = torch.from_numpy(rng.randint(1, VOCAB - 1, (B, labels)))
+    ylens = torch.full((B,), labels, dtype=torch.int64)
+    ylens[-1] = labels * 3 // 4
+    return feats, lens, ys, ylens
+
+
+def family_loss_fn(name: str, model, teacher):
+    """``loss_fn(params, batch, seed)`` of train_step for one family: the
+    parameters bound into the model (the RNN-T loss and w2v-BERT's second
+    pass read them in the backward), dropout from ``seed``, the SSL draws
+    from a generator seeded with it."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.models import teacher_student
+    from paper_accurate_fast_cheap_tpu_torch.train import train_step as ts
+
+    if name == "teacher_student":
+        return teacher_student.make_ts_loss_fn(model, teacher)
+    ssl = name in ("wav2vec2", "w2vbert", "bestrq")
+
+    def loss_fn(p, batch, seed):
+        torch.manual_seed(seed)
+        model.train()
+        ts.bind_params(model, p)
+        if ssl:
+            out = model(batch[0], batch[1],
+                        generator=torch.Generator().manual_seed(seed))
+        else:
+            out = model(*batch)
+        return out["loss"], {}
+
+    return loss_fn
+
+
+def family_step(name, model, teacher, batch, mixed: bool):
+    """One forward + backward: (loss, gradient norm, K-counters, ms)."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.train import train_step as ts
+
+    loss_fn = family_loss_fn(name, model, teacher)
+    if mixed:
+        loss_fn = ts.wrap_mixed_precision(loss_fn)
+    leaves = {n: p.detach().requires_grad_(True)
+              for n, p in model.named_parameters()}
+    cuda = batch[0].device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    loss, _ = loss_fn(leaves, batch, 0)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    gnorm = float(ts.global_norm([g for g in grads if g is not None]))
+    if cuda:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return float(loss.detach()), gnorm, read_counts(), ms
+
+
+def _cif_at(threshold: float):
+    """paraformer.cif with another threshold (the reference's tie guard)."""
+    from paper_accurate_fast_cheap_tpu_torch.models import paraformer
+
+    cif = paraformer.cif
+
+    def run(enc, alpha, max_tokens):
+        return cif(enc, alpha, max_tokens, threshold=threshold)
+
+    return cif, run
+
+
+def phase_family_reference(rng) -> bool:
+    """Phase 33's card-vs-CPU reference: every family at 2 blocks, f32,
+    dropout 0, 2 x 300 frames x 10 labels, one forward + backward on each
+    side (the SSL draws from the same host generator): loss within 1e-4
+    relative, gradient norm within 1e-3.  Paraformer's training path
+    scales alpha to the label count, so its last fire is a tie each
+    device's summation order decides; both sides run its CIF at threshold
+    0.999 here."""
+    import copy
+
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.models import paraformer
+
+    batch = family_batch(rng, 2, 300, 10)
+    ok = True
+    for name, model, teacher in build_families(blocks=2, seed=90):
+        for m in (model, teacher):
+            for mod in (m.modules() if m is not None else ()):
+                if isinstance(mod, torch.nn.Dropout):
+                    mod.p = 0.0
+        res = {}
+        cif, guarded = _cif_at(0.999)
+        paraformer.cif = guarded
+        try:
+            for dev in ("cuda", "cpu"):
+                m = copy.deepcopy(model).to(dev)
+                t = None if teacher is None else copy.deepcopy(
+                    teacher).to(dev).eval()
+                res[dev] = family_step(name, m, t, tuple(
+                    x.to(dev) for x in batch), mixed=False)
+        finally:
+            paraformer.cif = cif
+        (lc, gc, kc, _), (lh, gh, _, _) = res["cuda"], res["cpu"]
+        le = abs(lc - lh) / max(abs(lh), 1e-12)
+        ge = abs(gc - gh) / max(abs(gh), 1e-12)
+        k1 = 2 * 2 * FAM_PASSES[name]
+        good = le <= 1e-4 and ge <= 1e-3 and kc["wkv6_fwd"] == k1
+        ok = ok and good
+        log(f"family reference {name} (2 blocks, f32, 2 x 300 frames): loss "
+            f"{lc:.6f} card / {lh:.6f} CPU (rel {le:.2e} <= 1e-4), grad "
+            f"norm {gc:.6f} / {gh:.6f} (rel {ge:.2e} <= 1e-3), K1 "
+            f"{kc['wkv6_fwd']} (want {k1}) {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def phase_family_training(rng) -> bool:
+    """Phase 33: one forward + backward of each family's loss on the
+    flagship's encoder at full width, B4 x 1500 frames x 40 labels, mixed
+    precision (bf16 compute over f32 master weights): loss finite, K1
+    exactly 24 x the step's encoder passes (its backward is plain
+    PyTorch), no other kernel, with the step's ms (cold: the first call of
+    each model) and peak memory; then the context adaptor's forward (no
+    loss in JAX either): the encoder's taps, the bias added onto the
+    encoder output, K1 24."""
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.models import context_adaptor
+    from paper_accurate_fast_cheap_tpu_torch.models.layers import (
+        init_default)
+
+    ok = phase_family_reference(rng)
+    batch = tuple(x.cuda() for x in family_batch(
+        rng, FAM_BATCH, FAM_FRAMES, FAM_LABELS))
+    zero = {k: 0 for k in counters()}
+    for name, model, teacher in build_families():
+        model = model.cuda()
+        if teacher is not None:
+            teacher = teacher.cuda().to(torch.bfloat16).eval()
+        torch.cuda.reset_peak_memory_stats()
+        loss, gnorm, counts, ms = family_step(name, model, teacher, batch,
+                                              mixed=True)
+        want = dict(zero, wkv6_fwd=24 * FAM_PASSES[name])
+        good = (np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0
+                and counts == want)
+        ok = ok and good
+        log(f"family {name} step (B{FAM_BATCH} x {FAM_FRAMES} frames x "
+            f"{FAM_LABELS} labels, mixed precision): loss {loss:.4f}, grad "
+            f"norm {gnorm:.4f}, {ms:.1f} ms (cold), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, counters "
+            f"{json.dumps(counts)} (K1 want {want['wkv6_fwd']}) "
+            f"{'ok' if good else 'FAIL'}")
+        del model, teacher
+        torch.cuda.empty_cache()
+    model = build_model(seed=88, label="flagship (context adaptor)")
+    adaptor = context_adaptor.ContextAdaptor(
+        VOCAB, d_model=FLAGSHIP_ENCODER["output_size"])
+    init_default(adaptor, torch.Generator().manual_seed(89))
+    adaptor = adaptor.cuda().eval()
+    cv = torch.from_numpy(rng.randint(1, VOCAB, (20, 6))).cuda()
+    cv_lens = torch.from_numpy(rng.randint(1, 7, 20)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        enc, elens, taps = model.encoder(batch[0], batch[1],
+                                         return_layers=True)
+        biased = enc + adaptor(taps, cv, cv_lens)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    good = (counts == dict(zero, wkv6_fwd=24)
+            and len(taps) == FLAGSHIP_ENCODER["num_blocks"]
+            and bool(torch.isfinite(biased).all())
+            and float((biased - enc).abs().max()) > 0)
+    ok = ok and good
+    log(f"context adaptor forward (B{FAM_BATCH} x {FAM_FRAMES} frames, 20 "
+        f"phrases, f32): {ms:.1f} ms with the encoder, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, counters "
+        f"{json.dumps(counts)} {'ok' if good else 'FAIL'}")
+    del model, adaptor
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _write_arpa(path: str, sentences, order: int) -> None:
+    """An ARPA file from token sentences: absolute discounting (0.5), each
+    context's freed mass as its backoff, log10."""
+    from collections import Counter
+
+    counts = [Counter() for _ in range(order)]
+    for s in sentences:
+        for k in range(1, order + 1):
+            for i in range(len(s) - k + 1):
+                counts[k - 1][tuple(s[i:i + k])] += 1
+    ctx = [Counter() for _ in range(order)]
+    types = [Counter() for _ in range(order)]
+    for k in range(1, order):
+        for key, c in counts[k].items():
+            ctx[k][key[:-1]] += c
+            types[k][key[:-1]] += 1
+    total = sum(counts[0].values())
+    lines = ["\\data\\"] + [f"ngram {k + 1}={len(counts[k])}"
+                            for k in range(order)]
+    for k in range(order):
+        lines += ["", f"\\{k + 1}-grams:"]
+        for key, c in sorted(counts[k].items()):
+            den = total if k == 0 else ctx[k][key[:-1]]
+            lp = np.log10(max(c - 0.5, 0.1) / den)
+            words = " ".join(str(w) for w in key)
+            if k < order - 1 and ctx[k + 1][key]:
+                bo = np.log10(0.5 * types[k + 1][key] / ctx[k + 1][key])
+                lines.append(f"{lp:.6f}\t{words}\t{bo:.6f}")
+            else:
+                lines.append(f"{lp:.6f}\t{words}")
+    lines += ["", "\\end\\", ""]
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+def espnet_lms(work: str, rng) -> dict:
+    """The searches' scorers, built from seeded token strings: an ARPA
+    3-gram over tokens 1-600 and an LG scorer (300 words of 1-3 tokens, a
+    word bigram over them)."""
+    from paper_accurate_fast_cheap_tpu_torch.decode import lm, wfst
+
+    sents = [list(rng.randint(1, 601, rng.randint(5, 21)))
+             for _ in range(3000)]
+    _write_arpa(os.path.join(work, "tok3.arpa"), sents, 3)
+    words = {w: list(rng.randint(1, 601, rng.randint(1, 4)))
+             for w in range(1, 301)}
+    wsents = [list(rng.randint(1, 301, rng.randint(3, 12)))
+              for _ in range(2000)]
+    _write_arpa(os.path.join(work, "word2.arpa"), wsents, 2)
+    g = lm.NGramLM.from_arpa(os.path.join(work, "word2.arpa"), None, 301)
+    return {"3-gram": lm.NGramLM.from_arpa(os.path.join(work, "tok3.arpa"),
+                                           None, VOCAB),
+            "LG": wfst.LGScorer(wfst.lexicon_to_l(words), wfst.arpa_to_g(g),
+                                vocab_size=VOCAB)}
+
+
+def _search(model, enc, stype, lm=None):
+    """One ESPnet search on ``enc`` (T, D): (result, predictor calls,
+    counters, wall s)."""
+    from paper_accurate_fast_cheap_tpu_torch.decode import rnnt_search
+    from paper_accurate_fast_cheap_tpu_torch.decode.transducer_espnet import (
+        BeamSearchTransducer)
+
+    pstep, jstep, init = rnnt_search.make_transducer_step_fns(model)
+    calls = [0]
+
+    def counted(tokens, state):
+        calls[0] += 1
+        return pstep(tokens, state)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    res = BeamSearchTransducer(counted, jstep, init, beam_size=ESP_BEAM,
+                               search_type=stype, lm=lm).decode(enc)
+    return res, calls[0], read_counts(), time.perf_counter() - t0
+
+
+def phase_espnet_searches(work: str, rng) -> bool:
+    """Phase 34: the five ESPnet searches (default, TSD, ALSD, NSC, mAES)
+    at beam 4 on the flagship (f32).  First the card against the CPU at 2
+    blocks on 3 s: tokens identical, scores within 1e-4 relative; then one
+    20 s utterance through the full encoder (K1 24), each search, then on
+    its first 5 s default and mAES with an ARPA 3-gram and default with
+    an LG scorer, both built here from seeded token strings.  K3's counter
+    equals the predictor calls of each search (counted by a wrapper), no
+    other kernel runs, with each search's wall and ms a frame."""
+    import copy
+
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.frontend import pipeline
+
+    zero = {k: 0 for k in counters()}
+
+    def utterance(seconds):
+        wav = torch.from_numpy((rng.randn(1, seconds * 16000) * 0.1).astype(
+            np.float32))
+        lens = torch.tensor([seconds * 16000])
+        stats = _cmvn_stats(pipeline.make_feature_fn({}, None, device="cpu"),
+                            wav, lens)
+        return wav, lens, stats
+
+    ok = True
+    small = build_model(config=dict(CONFIG, encoder_conf=dict(
+        FLAGSHIP_ENCODER, num_blocks=2, rwkv_do_bfloat16=False)), seed=71,
+        label="flagship, 2 blocks (ESPnet reference)")
+    wav, lens, stats = utterance(3)
+    encs = {}
+    for dev in ("cuda", "cpu"):
+        m = small if dev == "cuda" else copy.deepcopy(small).to("cpu")
+        feats, flens = pipeline.make_feature_fn({}, stats, device=dev)(
+            wav.to(dev), lens.to(dev))
+        encs[dev] = (m, m.forward_encoder(feats, flens)[0][0])
+    for stype in ESP_SEARCHES:
+        (rc, nc, kc, _), (rh, _, _, _) = (_search(*encs["cuda"], stype),
+                                          _search(*encs["cpu"], stype))
+        same = rc.nbest == rh.nbest
+        err = max((abs(a - b) / max(1.0, abs(b)) for a, b in zip(
+            rc.nbest_scores, rh.nbest_scores)), default=0.0)
+        good = same and err <= 1e-4 and kc == dict(zero, lstm_step=nc)
+        ok = ok and good
+        log(f"ESPnet {stype} reference (2 blocks, 3 s, f32, beam "
+            f"{ESP_BEAM}): card vs CPU n-best identical {same}, score rel "
+            f"err {err:.2e} (<= 1e-4), best {len(rc.tokens)} tokens, K3 "
+            f"{kc['lstm_step']} = predictor calls {nc} "
+            f"{'ok' if good else 'FAIL'}")
+    del small, encs
+    model = build_model(seed=72, label="flagship (ESPnet searches)")
+    wav, lens, stats = utterance(20)
+    feats, flens = pipeline.make_feature_fn({}, stats)(wav.cuda(),
+                                                      lens.cuda())
+    zero_counts()
+    enc, elens = model.forward_encoder(feats, flens)
+    k1 = read_counts()["wkv6_fwd"]
+    ok = ok and k1 == 24
+    T = int(elens[0])
+    log(f"ESPnet searches: 20 s through the flagship encoder, {T} frames, "
+        f"K1 {k1} (want 24)")
+    lms = espnet_lms(work, rng)
+    T_lm = T * ESP_LM_SECONDS // 20
+    for stype, lm_name in [(s, None) for s in ESP_SEARCHES] + [
+            ("default", "3-gram"), ("maes", "3-gram"), ("default", "LG")]:
+        frames = T_lm if lm_name else T
+        res, calls, counts, wall = _search(model, enc[0, :frames], stype,
+                                           lms.get(lm_name))
+        good = (counts == dict(zero, lstm_step=calls) and calls > 0
+                and np.isfinite(res.score) and len(res.nbest) > 0)
+        ok = ok and good
+        log(f"ESPnet {stype}{' + ' + lm_name if lm_name else ''} (flagship, "
+            f"{frames} frames, f32, beam {ESP_BEAM}): {wall:.2f} s, "
+            f"{wall / frames * 1e3:.2f} ms a frame, {len(res.tokens)} tokens, "
+            f"score {res.score:.3f}, K3 {counts['lstm_step']} = predictor "
+            f"calls {calls} {'ok' if good else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+    return ok
+
+
+def phase_whisper_joint_hlg(rng) -> bool:
+    """Phase 35: (a) Whisper at base width (d 512, 6 + 6 blocks, 8 heads,
+    80 mels, V 51865; random weights) on 30 s: whisper_log_mel, then greedy
+    decoding to 64 tokens, f32, the card's tokens against the CPU's (each
+    side its own log-mel); (b) the paper's model (the flagship plus the
+    bitransformer decoder of its YAML) on one 10 s utterance (f32):
+    joint_decoding at beam 10 (CTC 0.3, attention 0.7) and hlg_rescore
+    (the CTC beam's 8-best, an n-gram over tokens, decoder scales 0.5 /
+    0.5), no k2 on the machine either; K1 24 for the encoder."""
+    import copy
+
+    import torch
+
+    from paper_accurate_fast_cheap_tpu_torch.decode import (
+        joint_decoding, lm)
+    from paper_accurate_fast_cheap_tpu_torch.frontend import (
+        features, pipeline)
+    from paper_accurate_fast_cheap_tpu_torch.models import k2_model, whisper
+    from paper_accurate_fast_cheap_tpu_torch.models.layers import (
+        init_default)
+
+    ok = True
+    t0 = time.perf_counter()
+    wm = whisper.WhisperModel()
+    init_default(wm, torch.Generator().manual_seed(95))
+    n_params = sum(p.numel() for p in wm.parameters())
+    log(f"model: Whisper base ({n_params / 1e6:.1f} M parameters), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n = 30 * 16000
+    tt = np.arange(n) / 16000
+    wav = torch.from_numpy((0.3 * np.sin(2 * np.pi * 220 * tt)
+                            * np.sin(2 * np.pi * 0.5 * tt)
+                            + 0.05 * rng.randn(n)).astype(np.float32))
+    out = {}
+    models = {"cpu": copy.deepcopy(wm).eval(), "cuda": wm.cuda().eval()}
+    for dev in ("cuda", "cpu"):
+        m = models[dev]
+        zero_counts()
+        t0 = time.perf_counter()
+        mel = features.whisper_log_mel(wav.to(dev))
+        toks = whisper.whisper_greedy_decode(
+            m, mel[None], torch.tensor([mel.shape[0]], device=dev),
+            WHISPER_SOT, WHISPER_EOT, max_len=len(WHISPER_SOT)
+            + WHISPER_TOKENS)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = (mel.cpu(), toks, time.perf_counter() - t0,
+                    read_counts())
+    (mc, tc, wc, kc), (mh, th, wh, _) = out["cuda"], out["cpu"]
+    mel_err = float((mc - mh).abs().max())
+    good = (tc == th and len(tc[0]) > 0 and tuple(mc.shape) == (3000, 80)
+            and kc == {k: 0 for k in counters()})
+    ok = ok and good
+    log(f"Whisper base, 30 s (3000 x 80 log-mel, card vs CPU max_abs_err "
+        f"{mel_err:.2e}), greedy to {WHISPER_TOKENS} tokens, f32: card "
+        f"{wc:.2f} s, CPU {wh:.2f} s, tokens identical {tc == th} "
+        f"({len(tc[0])} tokens) {'ok' if good else 'FAIL'}")
+    del wm, models, out
+    torch.cuda.empty_cache()
+    model = build_model(config=paper_config(), seed=96,
+                        label="the paper's model (joint decoding, HLG)")
+    sos = eos = 2   # the YAML's special tokens
+    S = 10 * 16000
+    wav = torch.from_numpy((rng.randn(1, S) * 0.1).astype(np.float32))
+    lens = torch.tensor([S])
+    stats = _cmvn_stats(pipeline.make_feature_fn({}, None, device="cpu"),
+                        wav, lens)
+    feats, flens = pipeline.make_feature_fn({}, stats)(wav.cuda(),
+                                                      lens.cuda())
+    zero_counts()
+    enc, elens = model.forward_encoder(feats, flens)
+    k1 = read_counts()["wkv6_fwd"]
+    ctc = model.ctc_logprobs(enc)
+    step = torch.no_grad()(model.decoder.forward_one_step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jd = joint_decoding.joint_decoding(step, enc, elens, ctc[0], sos, eos,
+                                       beam_size=10, ctc_weight=0.3,
+                                       att_weight=0.7)
+    jd_s = time.perf_counter() - t0
+    sents = [list(rng.randint(1, VOCAB, rng.randint(5, 21)))
+             for _ in range(2000)]
+    arpa = os.path.join(tempfile.mkdtemp(prefix="hlg_"), "tok3.arpa")
+    _write_arpa(arpa, sents, 3)
+    ngram = lm.NGramLM.from_arpa(arpa, None, VOCAB)
+    shutil.rmtree(os.path.dirname(arpa), ignore_errors=True)
+    t0 = time.perf_counter()
+    hl = k2_model.hlg_rescore(
+        ctc.float().cpu().numpy(), elens.cpu().numpy(), model.decoder_forward,
+        sos, eos, enc_out=enc, enc_lens=elens, lm_scale=0.5,
+        decoder_scale=0.5, r_decoder_scale=0.5, ngram_lm=ngram, beam_size=8)
+    hl_s = time.perf_counter() - t0
+    good = (k1 == 24 and np.isfinite(jd.score) and len(hl) == 1
+            and len(hl[0].nbest) > 0
+            and all(np.isfinite(s) for s in hl[0].nbest_scores)
+            and not k2_model.k2_available())
+    ok = ok and good
+    log(f"joint_decoding (the paper's model, 10 s, {int(elens[0])} frames, "
+        f"beam 10, f32): {jd_s:.2f} s, {len(jd.tokens)} tokens, score "
+        f"{jd.score:.3f}; hlg_rescore (no k2: CTC 8-best + 3-gram + decoder "
+        f"0.5 / 0.5): {hl_s:.2f} s, {len(hl[0].nbest)} paths, best "
+        f"{len(hl[0].tokens)} tokens; K1 {k1} (want 24) "
+        f"{'ok' if good else 'FAIL'}")
+    del model
+    torch.cuda.empty_cache()
+    return ok
 
 
 def main() -> int:
@@ -4682,6 +5239,17 @@ def main() -> int:
         if not phase_family_cli(work, paths, card):
             failed.append("recognize_wav, E-Branchformer and verbatimicity")
         lap("LSL, encoder families, family CLI")
+        # the other model families and searches
+        torch.cuda.empty_cache()
+        if not phase_family_training(np.random.RandomState(39)):
+            failed.append("model families' training losses")
+        lap("model families")
+        if not phase_espnet_searches(work, np.random.RandomState(40)):
+            failed.append("ESPnet searches")
+        lap("ESPnet searches")
+        if not phase_whisper_joint_hlg(np.random.RandomState(41)):
+            failed.append("Whisper, joint decoding, HLG")
+        lap("Whisper, joint decoding, HLG")
         if not phase_hub(work, paths):
             failed.append("hub")
         lap("hub")

@@ -6,7 +6,9 @@ The port names its submodules after the flax tree (``encoder.layer_{i}``,
 ``encoder.MambaAttention_{i}.mamba_fwd.in_proj``,
 ``predictor.lstm_{i}.ih``, ``joint.ffn_out``,
 ``decoder.left_decoder.layer_{i}.self_attn.linear_q``, ...) for the
-``Transducer`` and ``ASRModel`` trees, so the bridge only changes layouts:
+``Transducer`` and ``ASRModel`` trees and those of the other families
+(``BiTransducer``, ``ContextAdaptor``, ``CTLModel``, ``Paraformer``, the SSL
+models, ``WhisperModel``), so the bridge only changes layouts:
 
 * Dense ``kernel`` (in, out)          -> Linear ``weight`` (out, in)
 * Conv ``kernel`` (kh, kw, in, out)   -> Conv2d ``weight`` (out, in, kh, kw)
@@ -19,11 +21,14 @@ Biases, the rel-pos attention's ``pos_bias_u`` and ``pos_bias_v`` (H, d_k;
 (H, d_k * g) in the grouped attention), the RWKV mixing parameters
 (``time_*``), the Mamba-2 block's ``dt_bias``, ``A_log`` and ``D`` (H,),
 the embedding predictor's ``pos_weight``, the MoE experts' ``w1`` and
-``w2``, LoRA's ``lora_A`` and ``lora_B`` and the learnable positions'
-``pos_embedding`` keep their layout; squeezeformer's ``ScaledResidual``
-``scale`` becomes ``weight``.  The ``batch_stats`` collection (the conv
-module's ``batch_norm``), given beside ``params``, maps ``mean`` and
-``var`` to the BatchNorm's ``running_mean`` and ``running_var``.  A leaf of
+``w2``, LoRA's ``lora_A`` and ``lora_B``, the learnable positions'
+``pos_embedding``, the context adaptor's ``combine_weights``, Whisper's
+``decoder_pos``, the SSL models' ``mask_emb`` and the product quantizer's
+``codebook`` (groups, entries, dim / groups) keep their layout;
+squeezeformer's ``ScaledResidual`` ``scale`` becomes ``weight``.  The
+``batch_stats`` collection (the conv module's ``batch_norm``), given beside
+``params``, maps ``mean`` and ``var`` to the BatchNorm's ``running_mean``
+and ``running_var``.  A leaf of
 any other name (a module the port does not have) raises KeyError.  WeNet
 checkpoints load through ``tools/convert_checkpoint.py``.
 
@@ -52,7 +57,8 @@ def _flatten(tree: Mapping, prefix: str = ""):
 # the leaves of the ported modules besides the RWKV's ``time_*``
 _LEAVES = ("bias", "kernel", "scale", "embedding", "hh", "pos_bias_u",
            "pos_bias_v", "dt_bias", "A_log", "D", "pos_weight", "w1", "w2",
-           "lora_A", "lora_B", "pos_embedding")
+           "lora_A", "lora_B", "pos_embedding", "combine_weights",
+           "decoder_pos", "mask_emb", "codebook")
 # the batch_stats leaves and the BatchNorm buffers they fill
 _STATS = {"mean": "running_mean", "var": "running_var"}
 

@@ -137,3 +137,56 @@ def mfcc(waveform: torch.Tensor, num_mel_bins: int = 23, num_ceps: int = 13,
         ceps = ceps * torch.tensor(lifter.astype(np.float32),
                                    device=fb.device)
     return ceps
+
+
+def whisper_log_mel(waveform: torch.Tensor, n_fft: int = 400,
+                    hop_length: int = 160, num_mel_bins: int = 80,
+                    sample_rate: int = 16000) -> torch.Tensor:
+    """Whisper's log-mel spectrogram of one [-1, 1] waveform (not int16
+    scaled): a centred Hann STFT (reflect padding), its last frame dropped,
+    Slaney mel banks, log10 over a 1e-10 floor, clamped at the maximum
+    minus 8, then (x + 4) / 4.  Returns (frames, num_mel_bins) f32 on the
+    waveform's device.  ``torch.fft.rfft`` and JAX's FFT differ in quiet
+    bins (as the fbank's)."""
+    pad = n_fft // 2
+    w = F.pad(waveform.to(torch.float32)[None, None], (pad, pad),
+              mode="reflect")[0, 0]
+    n = torch.arange(n_fft, device=w.device, dtype=torch.float32)
+    window = 0.5 - 0.5 * torch.cos(2.0 * math.pi * n / n_fft)
+    frames = w.unfold(0, n_fft, hop_length) * window
+    mag = torch.fft.rfft(frames, n=n_fft).abs() ** 2
+    banks = torch.from_numpy(slaney_mel_banks(num_mel_bins, n_fft,
+                                              sample_rate)).to(w.device)
+    mel = mag[:-1] @ banks.T
+    log_spec = torch.log10(torch.clamp(mel, min=1e-10))
+    log_spec = torch.maximum(log_spec, log_spec.max() - 8.0)
+    return (log_spec + 4.0) / 4.0
+
+
+def slaney_mel_banks(n_mels: int, n_fft: int, sr: int) -> np.ndarray:
+    """librosa.filters.mel's defaults: the Slaney scale and area norm,
+    (n_mels, n_fft // 2 + 1) f32."""
+    def hz_to_mel(f):
+        f = np.asarray(f, np.float64)
+        return np.where(f >= 1000.0, 15.0 + np.log(
+            np.maximum(f, 1e-10) / 1000.0) / np.log(6.4) * 27.0,
+            f / (200.0 / 3.0))
+
+    def mel_to_hz(m):
+        m = np.asarray(m, np.float64)
+        return np.where(m >= 15.0, 1000.0 * np.exp(np.log(6.4) / 27.0
+                                                   * (m - 15.0)),
+                        m * (200.0 / 3.0))
+
+    fmax = sr / 2.0
+    hzs = mel_to_hz(np.linspace(hz_to_mel(0.0), hz_to_mel(fmax), n_mels + 2))
+    fft_freqs = np.linspace(0, fmax, 1 + n_fft // 2)
+    fdiff = np.diff(hzs)
+    ramps = hzs[:, None] - fft_freqs[None, :]
+    weights = np.zeros((n_mels, len(fft_freqs)))
+    for i in range(n_mels):
+        lower = -ramps[i] / fdiff[i]
+        upper = ramps[i + 2] / fdiff[i + 1]
+        weights[i] = np.maximum(0, np.minimum(lower, upper))
+    weights *= (2.0 / (hzs[2:n_mels + 2] - hzs[:n_mels]))[:, None]
+    return weights.astype(np.float32)

@@ -312,16 +312,20 @@ class ConformerEncoder(nn.Module):
                 streaming_state: Optional[dict] = None,
                 return_state: bool = False, offset: int = 0,
                 att_cache_size: int = 0, return_layers: bool = False,
-                cat_embs: Optional[torch.Tensor] = None):
+                cat_embs: Optional[torch.Tensor] = None,
+                pre_embedded: bool = False):
         """Full forward, or with ``return_state`` one streaming chunk:
         positions from ``offset`` (encoder frames), no masks, and
         ``streaming_state`` ({"layers": [per-layer state]}, None at the
         start) carried; returns (xs, out_lens, new streaming state).  With
         ``return_layers`` the full forward returns (xs, out_lens, [each
         block's output, before the final norm]).  ``cat_embs`` (B, K) mixes
-        the LSL blocks (ignored without them)."""
-        xs, out_lens = self.embed(xs, xs_lens)
-        out_lens = torch.clamp(out_lens, max=xs.shape[1])
+        the LSL blocks (ignored without them).  With ``pre_embedded`` xs is
+        already at the subsampled rate and width (the SSL models' second
+        pass): no subsampling, lengths clamped to T."""
+        if not pre_embedded:
+            xs, xs_lens = self.embed(xs, xs_lens)
+        out_lens = torch.clamp(xs_lens, max=xs.shape[1])
         xs, pos_emb = self.pos_enc(xs, offset=offset)
         if return_state:
             return self._chunk(xs, out_lens, pos_emb, streaming_state,

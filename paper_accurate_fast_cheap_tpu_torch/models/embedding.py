@@ -1,10 +1,12 @@
 """Positional encodings (port of ``PositionalEncoding``,
 ``RelPositionalEncoding``, ``NoPositionalEncoding`` and
-``LearnablePositionalEncoding`` of the JAX ``models/embedding.py``)."""
+``LearnablePositionalEncoding`` and ``WhisperPositionalEncoding`` of the JAX
+``models/embedding.py``)."""
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -24,6 +26,19 @@ def sinusoid_positions(offset: int, T: int, d_model: int,
     pe[:, 0::2] = torch.sin(ang)
     pe[:, 1::2] = torch.cos(ang)
     return pe
+
+
+def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
+    """The sinusoid table (max_len, d_model) computed in float64 on the host
+    and stored f32, as the JAX package's ``sinusoid_table`` (Whisper's
+    positions)."""
+    position = np.arange(max_len, dtype=np.float64)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float64)
+                      * -(np.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), np.float64)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe.astype(np.float32)
 
 
 class RelPositionalEncoding(nn.Module):
@@ -92,3 +107,20 @@ class LearnablePositionalEncoding(nn.Module):
         pos = self.pos_embedding[None, offset: offset + x.shape[1]]
         scale = torch.sqrt(torch.tensor(float(self.d_model), dtype=x.dtype))
         return self.dropout(x * scale.to(x.device) + pos), pos
+
+
+class WhisperPositionalEncoding(nn.Module):
+    """Whisper's: x + the sinusoid table (``sinusoid_table``), x not scaled;
+    returns (dropout(x + P[offset:offset+T]), that slice as (1, T, d))."""
+
+    def __init__(self, d_model: int, dropout_rate: float = 0.1,
+                 max_len: int = 1500):
+        super().__init__()
+        self.d_model = d_model
+        self.register_buffer("pe", torch.from_numpy(
+            sinusoid_table(max_len, d_model)), persistent=False)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, x: torch.Tensor, offset: int = 0):
+        pos = self.pe[None, offset: offset + x.shape[1]]
+        return self.dropout(x + pos), pos

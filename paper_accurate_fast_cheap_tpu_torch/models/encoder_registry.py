@@ -71,6 +71,17 @@ def is_chunkable(encoder: nn.Module) -> bool:
     return isinstance(encoder, ConformerEncoder)
 
 
+def eval_forward(encoder: nn.Module, *args, **kw):
+    """One forward with dropout off (JAX's ``deterministic=True``), still
+    differentiable; the encoder's mode is restored."""
+    was = encoder.training
+    encoder.eval()
+    try:
+        return encoder(*args, **kw)
+    finally:
+        encoder.train(was)
+
+
 def forward_encoder(encoder: nn.Module, feats, feat_lens,
                     decoding_chunk_size: int = 0,
                     num_decoding_left_chunks: int = -1, cat_embs=None):

@@ -8,8 +8,10 @@ optional ``decoder: transformer`` or ``bitransformer``.  The encoder keys
 are JAX's: a family's own keys outside them (``reduce_idx``,
 ``stride_layers``, ``merge_method``, ``num_langs``, ...) take their
 defaults from a YAML; the language-specific blocks are built by passing
-``encoder_conf=dict(..., num_langs=K)`` to the model classes.  Other
-``model:`` families wait for ROADMAP Queue 1, item 13."""
+``encoder_conf=dict(..., num_langs=K)`` to the model classes.  As in JAX,
+any other ``model:`` value builds the ``ASRModel`` (logged); the other
+families (``models/bitransducer.py``, ``paraformer.py``, ``ctl_model.py``,
+``ssl_*.py``, ``whisper.py``) are built from their classes."""
 from __future__ import annotations
 
 import logging
@@ -71,12 +73,15 @@ def init_model(config: Dict[str, Any], vocab_size: int, input_dim: int = 80,
     model_type = config.get("model", "asr_model")
     encoder_type = config.get("encoder", "conformer")
     predictor = config.get("predictor", "rnn")
-    if model_type not in ("transducer", "asr_model") or (
-            model_type == "transducer" and predictor not in PREDICTORS):
+    if model_type == "transducer" and predictor not in PREDICTORS:
         raise NotImplementedError(
-            "the port builds model: transducer (predictor: rnn, embedding "
-            "or conv) and model: asr_model; other families wait for ROADMAP "
-            "Queue 1, item 13")
+            f"predictor {predictor!r}: a transducer's predictor is rnn, "
+            "embedding or conv")
+    if model_type not in ("transducer", "asr_model"):
+        logging.getLogger(__name__).info(
+            "model %r: building the hybrid CTC/attention ASRModel, as the "
+            "JAX factory does", model_type)
+        model_type = "asr_model"
     enc_conf = encoder_conf_from_yaml(config.get("encoder_conf", {}),
                                       input_dim)
     model_conf = config.get("model_conf", {})

@@ -58,6 +58,14 @@ def reverse_pad_list(ys: torch.Tensor, ys_lens: torch.Tensor,
     return torch.where(pos < lens, rev, torch.full_like(rev, pad_value))
 
 
+def cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity along the last axis, each side normalised with
+    1e-8 added to its norm."""
+    a = a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True) + 1e-8)
+    b = b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True) + 1e-8)
+    return (a * b).sum(-1)
+
+
 def accuracy(logits: torch.Tensor, targets: torch.Tensor,
              ignore_id: int = IGNORE_ID) -> torch.Tensor:
     """Token accuracy over the positions that are not ``ignore_id``."""

@@ -1,14 +1,16 @@
 """Tokenizers (port of the JAX ``text/tokenizers.py``): the sentencepiece
 ``.model`` protobuf reader, the unigram Viterbi encoder, and the char,
-bpe, rev_bpe and whitespace tokenizers that ``init_tokenizer`` builds from a
-WeNet-style config.  The paraformer and HuggingFace/whisper tokenizers are
-not ported yet (ROADMAP Queue 1, item 13) and raise.
+bpe, rev_bpe, paraformer (seg-dict words, the paraformer beautifier),
+whitespace and HuggingFace/whisper tokenizers that ``init_tokenizer`` builds
+from a WeNet-style config (the last wraps ``transformers.AutoTokenizer``,
+imported when one is built).
 
 The reader and the encoder need no ``sentencepiece`` wheel; when the real
 package is importable it is preferred, as in the JAX package.
 """
 from __future__ import annotations
 
+import os
 import re
 import struct
 from typing import Dict, List, Optional, Tuple
@@ -309,6 +311,140 @@ class RevBpeTokenizer(BpeTokenizer):
         return self.connect_symbol.join(tokens).replace(WS, " ").strip()
 
 
+def _is_cjkish(s: str) -> bool:
+    """`wenet/paraformer/search.py:10-13` — NOTE: the reference compares
+    whole (possibly multi-char) strings lexicographically against the CJK
+    range, so a token qualifies iff its first char does; reproduced
+    verbatim for output parity."""
+    return "一" <= s <= "鿿" or "0" <= s <= "9" \
+        or s == "@"
+
+
+def _strip_specials(tok: str) -> str:
+    for s in (" ", "</s>", "<s>", "<unk>", "<OOV>"):
+        tok = tok.replace(s, "")
+    return tok
+
+
+def _all_cjk(word) -> bool:
+    """`search.py:16-32`; str input iterates chars, list input iterates
+    whole tokens (the reference relies on both behaviors)."""
+    cleaned = [_strip_specials(t) for t in word]
+    return bool(cleaned) and all(_is_cjkish(c) for c in cleaned)
+
+
+def _all_alpha(word) -> bool:
+    """`search.py:35-54` — whole-unit str.isalpha(), with CJK units
+    (alpha in Python but in the CJK range) explicitly rejected."""
+    cleaned = [_strip_specials(t) for t in word]
+    return bool(cleaned) and all(
+        (c.isalpha() or c == "'") and not (c.isalpha() and _is_cjkish(c))
+        for c in cleaned)
+
+
+def paraformer_beautify_result(tokens: List[str]) -> str:
+    """Join paraformer tokens into display text, gluing `@@` BPE pieces and
+    spacing alpha words (`wenet/paraformer/search.py:57-104`)."""
+    mid = [t for t in tokens if t not in ("<sos>", "<eos>", "<blank>")]
+    out: List[str] = []
+    word = ""
+    if _all_cjk(mid):
+        out = [t.replace(" ", "") for t in mid]
+    elif _all_alpha(mid):
+        for t in mid:
+            if "@@" in t:
+                word += t.replace("@@", "")
+            else:
+                out.append(word + t)
+                out.append(" ")
+                word = ""
+    else:
+        alpha_blank = False
+        for t in mid:
+            if _all_cjk([t]):
+                if alpha_blank:
+                    out.pop()
+                out.append(t)
+                alpha_blank = False
+            elif "@@" in t:
+                word += t.replace("@@", "")
+                alpha_blank = False
+            elif _all_alpha([t]):
+                out.append(word + t)
+                out.append(" ")
+                word = ""
+                alpha_blank = True
+            else:
+                out.append(t)
+                alpha_blank = False
+    return "".join(out).strip()
+
+
+def tokenize_by_seg_dict(seg_dict: Dict[str, str], txt: str) -> List[str]:
+    """CJK chars pass through; non-CJK words map through the seg dict
+    (`wenet/text/tokenize_utils.py:22-65`, upper=False)."""
+    pattern = re.compile(r"([一-鿿])")
+    tokens: List[str] = []
+    for part in pattern.split(txt):
+        if not part.strip():
+            continue
+        if pattern.fullmatch(part):
+            tokens.append(part)
+            continue
+        for word in part.split():
+            word = word.strip()
+            if word in seg_dict:
+                tokens.extend(seg_dict[word].split(" "))
+            else:
+                tokens.append(word)
+    return tokens
+
+
+def read_seg_dict(path) -> Dict[str, str]:
+    """`wenet/text/paraformer_tokenizer.py:8-15` — tab-separated
+    word -> space-joined pieces."""
+    table = {}
+    with open(path, encoding="utf8") as fin:
+        for line in fin:
+            arr = line.strip().split("\t")
+            assert len(arr) == 2, f"bad seg_dict line: {line!r}"
+            table[arr[0]] = arr[1]
+    return table
+
+
+class ParaformerTokenizer(CharTokenizer):
+    """Paraformer seg-dict tokenizer
+    (`wenet/text/paraformer_tokenizer.py:18-52`): char tokenizer whose
+    text2tokens routes non-CJK words through a seg dict and whose
+    tokens2text uses the paraformer beautifier."""
+
+    def __init__(self, symbol_table, seg_dict=None,
+                 split_with_space: bool = False, connect_symbol: str = "",
+                 unk: str = "<unk>"):
+        super().__init__(symbol_table, None, split_with_space,
+                         connect_symbol, unk)
+        self.seg_dict = (read_seg_dict(seg_dict)
+                         if isinstance(seg_dict, (str, os.PathLike))
+                         else seg_dict)
+
+    def text2tokens(self, line: str) -> List[str]:
+        assert self.seg_dict is not None
+        line = line.strip()
+        parts = self.pattern.split(line) if self.pattern else [line]
+        tokens: List[str] = []
+        for part in parts:
+            if not part.strip():
+                continue
+            if part in self.non_lang_syms:
+                tokens.append(part)
+            else:
+                tokens.extend(tokenize_by_seg_dict(self.seg_dict, part))
+        return tokens
+
+    def tokens2text(self, tokens: List[str]) -> str:
+        return paraformer_beautify_result(tokens)
+
+
 class WhitespaceTokenizer(BaseTokenizer):
     """Plain word tokenizer (for tests / word-level models)."""
 
@@ -337,6 +473,35 @@ class WhitespaceTokenizer(BaseTokenizer):
         return self._symbol_table
 
 
+class HuggingFaceTokenizer(BaseTokenizer):
+    """Wrap a transformers tokenizer
+    (`wenet/text/hugging_face_tokenizer.py`)."""
+
+    def __init__(self, model: str):
+        from transformers import AutoTokenizer
+
+        self.tok = AutoTokenizer.from_pretrained(model)
+
+    def text2tokens(self, line):
+        return self.tok.tokenize(line)
+
+    def tokens2text(self, tokens):
+        return self.tok.convert_tokens_to_string(tokens)
+
+    def tokens2ids(self, tokens):
+        return self.tok.convert_tokens_to_ids(tokens)
+
+    def ids2tokens(self, ids):
+        return self.tok.convert_ids_to_tokens(ids)
+
+    def vocab_size(self):
+        return len(self.tok)
+
+    @property
+    def symbol_table(self):
+        return self.tok.get_vocab()
+
+
 def init_tokenizer(configs) -> BaseTokenizer:
     """Build a tokenizer from a WeNet-style config."""
     tt = configs.get("tokenizer", "char")
@@ -361,9 +526,15 @@ def init_tokenizer(configs) -> BaseTokenizer:
             remove_sw=conf.get("remove_sw", True),
             replace_unk_as_unknown=conf.get("replace_unk_as_unknown", True),
         )
-    if tt in ("huggingface", "whisper", "paraformer"):
-        raise NotImplementedError(
-            f"tokenizer {tt!r} is not ported yet (ROADMAP Queue 1, item 13)")
+    if tt == "huggingface":
+        return HuggingFaceTokenizer(conf["model"])
+    if tt == "whisper":
+        return HuggingFaceTokenizer(conf.get("model", "openai/whisper-base"))
+    if tt == "paraformer":
+        return ParaformerTokenizer(
+            conf["symbol_table_path"], conf.get("seg_dict_path"),
+            split_with_space=conf.get("split_with_space", False),
+        )
     if tt == "whitespace":
         return WhitespaceTokenizer(conf["symbol_table_path"])
     raise ValueError(f"unknown tokenizer type {tt!r}")

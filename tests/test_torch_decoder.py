@@ -147,12 +147,16 @@ def test_bitransformer_decoder(reverse_weight):
 
 
 def test_bridge_refuses_unknown_leaves():
-    """A flax leaf the port has no module for (here the wav2vec2 model's
-    ``mask_emb``, not ported; LoRA's ``lora_A`` and Mamba-2's ``A_log``, the
-    earlier examples, now convert) raises instead of being copied."""
-    tree = {"mask_emb": np.zeros((D,), np.float32)}
-    with pytest.raises(KeyError, match="mask_emb"):
+    """A flax leaf the port has no module for raises instead of being
+    copied.  Every leaf of the JAX package converts since the other model
+    families were ported (the wav2vec2 model's ``mask_emb``, LoRA's
+    ``lora_A`` and Mamba-2's ``A_log``, the earlier examples, now do), so
+    the leaf here is one no flax module of the package creates."""
+    tree = {"norm": {"gamma": np.zeros((D,), np.float32)}}
+    with pytest.raises(KeyError, match="norm.gamma"):
         state_dict_from_jax(tree)
+    assert "mask_emb" in state_dict_from_jax(
+        {"mask_emb": np.zeros((D,), np.float32)})
 
 
 @pytest.mark.parametrize("normalize_length", [False, True])

@@ -44,7 +44,11 @@ def test_port_imports_no_jax():
     # fbank, CMVN and embedding tools, the codecs and their C++ shims, the
     # shard and data tools, the hub, the export tool, the recipe's drivers,
     # the encoder families and their registry, the subsamplings, the
-    # predictors and LoRA are among those imported
+    # predictors and LoRA, and the other model families and searches (the
+    # n-gram and WFST scorers, the FST CLI, the ESPnet searches, joint
+    # decoding, HLG, the bidirectional transducer, the context adaptor,
+    # teacher-student, CTL, Paraformer, the SSL models, Whisper and JAX's
+    # fixed-key draws) are among those imported
     assert {f"{PKG}.{m}" for m in (
         "ops.ffn", "ops.rnnt", "train.schedulers", "train.train_step",
         "bin.train_bench", "ops.multi_product", "ops.losses",
@@ -73,7 +77,12 @@ def test_port_imports_no_jax():
         "examples.gigaspeech.local.run_rtf_sweep", "models.branchformer",
         "models.squeezeformer", "models.efficient_conformer",
         "models.encoder_registry", "models.subsampling", "models.predictor",
-        "models.lora", "frontend.features")} <= set(mods)
+        "models.lora", "frontend.features", "decode.lm", "decode.wfst",
+        "bin.fst_tools", "decode.transducer_espnet", "decode.joint_decoding",
+        "models.k2_model", "models.bitransducer", "models.context_adaptor",
+        "models.teacher_student", "models.ctl_model", "models.paraformer",
+        "models.ssl_wav2vec2", "models.ssl_w2vbert", "models.ssl_bestrq",
+        "models.whisper", "utils.jax_prng", "text.tokenizers")} <= set(mods)
 
 
 def test_port_sources_do_not_name_the_jax_package():

@@ -4,6 +4,7 @@ reading and resampling, Kaldi-text CMVN and config loading."""
 import io
 import json
 import struct
+import sys
 import wave
 
 import numpy as np
@@ -76,9 +77,69 @@ def test_tokenizers_match_jax(spm_files, kind):
             == j_tk.parse_sentencepiece_model(model))
 
 
-def test_unported_tokenizers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tk.init_tokenizer({"tokenizer": "paraformer"})
+def test_unported_tokenizers_raise(tmp_path):
+    """The paraformer and HuggingFace/whisper tokenizers are ported: both
+    sides raise KeyError alike on a paraformer config without its symbol
+    table, and a built one tokenizes and beautifies as JAX's."""
+    for side in (j_tk, t_tk):
+        with pytest.raises(KeyError):
+            side.init_tokenizer({"tokenizer": "paraformer"})
+    units = tmp_path / "units.txt"
+    syms = ["<blank>", "<unk>", "你", "好", "世", "界", "hel@@", "lo",
+            "wor@@", "ld", "ok", "<sos/eos>"]
+    units.write_text("".join(f"{t} {i}\n" for i, t in enumerate(syms)))
+    seg = tmp_path / "seg_dict"
+    seg.write_text("hello\thel@@ lo\nworld\twor@@ ld\nok\tok\n")
+    conf = {"tokenizer": "paraformer", "tokenizer_conf": {
+        "symbol_table_path": str(units), "seg_dict_path": str(seg)}}
+    tj, tt = j_tk.init_tokenizer(conf), t_tk.init_tokenizer(conf)
+    for line in ("你好 hello world", "hello 世界 ok", "ok", "你好世界",
+                 "world zebra 好"):
+        assert tt.tokenize(line) == tj.tokenize(line)
+        toks = tt.text2tokens(line)
+        assert tt.tokens2text(toks) == tj.tokens2text(toks)
+    for toks in (["你", "好"], ["hel@@", "lo", "wor@@", "ld"],
+                 ["hel@@", "lo", "你", "ok", "<sos>"], ["<unk>", "1", "@"]):
+        assert (t_tk.paraformer_beautify_result(toks)
+                == j_tk.paraformer_beautify_result(toks))
+
+
+def _unstub_modules(monkeypatch):
+    """Some JAX-package tests put empty modules in ``sys.modules`` (stubs
+    for the reference's imports: ``sentencepiece``, ``torchaudio``, ...);
+    transformers' import asks for their specs and fails on them.  Hide the
+    stubs for this test."""
+    for name, mod in list(sys.modules.items()):
+        if ("." not in name and name != "__main__" and mod is not None
+                and getattr(mod, "__spec__", None) is None
+                and not getattr(mod, "__file__", None)):
+            monkeypatch.delitem(sys.modules, name)
+
+
+def test_huggingface_tokenizer_matches_jax(tmp_path, monkeypatch):
+    """The ``huggingface`` and ``whisper`` wrappers over one tokenizer
+    saved here (no download): tokens, ids, text and the vocabulary."""
+    _unstub_modules(monkeypatch)
+    transformers = pytest.importorskip("transformers")
+    letters = "abcdehlorw"
+    vocab = {c: i for i, c in enumerate(letters)}
+    vocab.update({"\u0120": len(vocab), "he": len(vocab) + 1,
+                  "ll": len(vocab) + 2, "<|endoftext|>": len(vocab) + 3})
+    (tmp_path / "vocab.json").write_text(json.dumps(vocab))
+    (tmp_path / "merges.txt").write_text("#version: 0.2\nh e\nl l\n")
+    tok = transformers.GPT2Tokenizer(str(tmp_path / "vocab.json"),
+                                     str(tmp_path / "merges.txt"))
+    tok.save_pretrained(str(tmp_path / "tok"))
+    for kind in ("huggingface", "whisper"):
+        conf = {"tokenizer": kind,
+                "tokenizer_conf": {"model": str(tmp_path / "tok")}}
+        tj, tt = j_tk.init_tokenizer(conf), t_tk.init_tokenizer(conf)
+        assert tt.vocab_size() == tj.vocab_size()
+        assert tt.symbol_table == tj.symbol_table
+        for line in ("hello world", "hold the ball"):
+            assert tt.tokenize(line) == tj.tokenize(line)
+            ids = tt.tokenize(line)[1]
+            assert tt.detokenize(ids) == tj.detokenize(ids)
 
 
 def _wav_bytes(x, sr, width=2, channels=1):

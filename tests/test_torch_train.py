@@ -163,8 +163,9 @@ def test_attention_decoder_loss_raises():
     attention weight > 0 trains (its values are held to JAX in
     ``tests/test_torch_decoder.py``), on the conformer and on the other
     encoder families too (here the branchformer, whose values are held to
-    JAX in ``tests/test_torch_encoder_families.py``); what still raises is
-    a model family the port does not build (ROADMAP Queue 1 item 13)."""
+    JAX in ``tests/test_torch_encoder_families.py``).  As in JAX, a
+    ``model:`` other than transducer builds the ``ASRModel``, and what
+    raises is a transducer predictor outside rnn, embedding and conv."""
     conf = dict(CONFIG, decoder="bitransformer",
                 decoder_conf={"attention_heads": 2, "linear_units": 32,
                               "num_blocks": 1, "r_num_blocks": 1},
@@ -180,8 +181,13 @@ def test_attention_decoder_loss_raises():
     out = bm(feats, flens, labels, llens)
     assert float(out["loss_att"].detach()) > 0
     assert np.isfinite(float(out["loss"].detach()))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 13"):
-        t_factory.init_model(dict(conf, model="k2_model"), VOCAB, 80,
+    km, kind = t_factory.init_model(dict(conf, model="k2_model"), VOCAB, 80,
+                                    device="cpu")
+    jm, jkind = j_factory.init_model(dict(conf, model="k2_model"), VOCAB, 80)
+    assert (type(km).__name__, kind) == (type(jm).__name__, jkind) == (
+        "ASRModel", "asr_model")
+    with pytest.raises(NotImplementedError, match="predictor 'lstm'"):
+        t_factory.init_model(dict(CONFIG, predictor="lstm"), VOCAB, 80,
                              device="cpu")
 
 
