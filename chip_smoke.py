@@ -116,17 +116,18 @@ Phases, each fatal on failure (no phase is skipped or caught):
      x 2051 frames, f32, 6 of its 12 blocks, to bytes and back; 12
      pafc_torch::wkv6_fwd nodes, the loaded program equal to eager, K1 12
      launches a call;
- 26. the recipe's run_accuracy_loop at its defaults (make_shard ->
-     compute_cmvn_stats -> recognize_wav + WER at init -> bin/train 20
-     epochs on merged ~20 s utterances -> recognize_wav + WER): WER must
-     fall and reach 0.1;
+ 26. the recipe's run_accuracy_loop at its defaults but 14 epochs (its
+     default is 20): make_shard -> compute_cmvn_stats -> recognize_wav +
+     WER at init -> bin/train on merged ~20 s utterances ->
+     recognize_wav + WER; WER must fall and reach 0.1;
  27. run_impl_matrix on the trained checkpoint (5 cells, one transcript);
  28. run_lf_sweep over the loop's long-form episodes as FLACs at chunk
      sizes 2000 and 4000;
  29. run_rtf_sweep: one bin/encoder_rtf subprocess per point, the bi-RWKV
      bench YAML at chunk 9000, batch 4 (chunk 2000 and the MHA YAML's
      point, which phase 19's encoder_rtf also measures, were cut to keep
-     the script inside its limit on a slow host);
+     the script inside its limit on a slow host); it runs beside phase
+     36's processes, so its 1/RTF is printed, not compared;
  30. the LSL flagship (num_langs 2: blocks 0 and 11 language-specific,
      built from encoder_conf as the JAX package's tests build it): a small
      f32 reference with cat_embs one-hot and None, the card against the
@@ -155,14 +156,36 @@ Phases, each fatal on failure (no phase is skipped or caught):
      taps (K1 24);
  34. the five ESPnet transducer searches (default, TSD, ALSD, NSC, mAES)
      at beam 4, f32: card against CPU at 2 blocks on 3 s (n-best
-     identical, scores within 1e-4), then on the flagship on 20 s (K1 24),
-     and on its first 5 s default and mAES with a seeded ARPA 3-gram and
+     identical, scores within 1e-4), then on the flagship on 10 s (K1 24),
+     and on its first 3 s default and mAES with a seeded ARPA 3-gram and
      default with an LG scorer over a seeded lexicon; K3 equals each
      search's predictor calls;
  35. Whisper base on 30 s (whisper_log_mel, greedy to 64 tokens, card
      against CPU tokens in f32), and joint CTC/attention decoding and
      HLG rescoring (the CTC fallback: no k2) with the paper's model on
      10 s;
+ 36. parallel (torch.distributed; ranks share the one card, so gloo,
+     whose collectives on CUDA tensors copy through the host): (a)
+     parallel/dryrun.py's seven checks on 4 ranks within JAX's bounds;
+     (b) the flagship's encoder + CTC at 32 x 90 s (9000 frames) with T
+     sharded over 2 ranks against one rank on the window zero-padded by
+     6 frames: in f32 on 4 of the rows (relative max error < 1e-4), in
+     bf16 on all 32 (||err|| / ||ref|| within bf16's own rounding on the
+     model, one rank in bf16 against f32), with what the 6 zero frames
+     change in one rank's logits printed; then, once every other
+     process of the phase has ended, two bf16 forwards timed, K1 exactly
+     48 a rank each (the summary and the replay pass, both directions,
+     12 blocks), and the collectives' calls and bytes; (c) torchrun
+     --nproc_per_node 2 -m bin.recognize_wav --seq_parallel 2 on phase
+     23's 180 s WAV at chunk 9000: ctc_greedy_search in f32 (no TF32),
+     its TXT byte for byte against the sequence-parallel contract's (one
+     rank, each window zero-padded by the ds4's 6 frames, unmasked) and,
+     reported, against the single-rank CLI's (its WER against them); the
+     same on the accuracy
+     loop's trained checkpoint (phase 26) and its 30 s episode at chunk
+     2000, its TXT byte for byte the single-rank CLI's; rnnt_beam_search's
+     counters (K1 48 a rank, K2 and K3 on rank 0 only) and each window's
+     best score;
 then one JSON line with every kernel's numbers and, last, the result line.
 K1 is also held and timed at the streaming call (8 x 16 x 8 x 64, the
 state in and out, bf16) in phase 3.
@@ -1218,6 +1241,26 @@ KERNELS = {
         "paper_accurate_fast_cheap_tpu_torch/csrc/multi_product.cu",
         "paper_accurate_fast_cheap_tpu/tools/repro_tpu_worker_crash.py:247"),
 }
+
+
+# Phase 36: ranks on the one card.  The sequence-parallel windows must hold
+# a multiple of 4 x SP_RANKS frames: 9000 (90.0 s) is the nearest to
+# CLI_CHUNK, for the flagship's encoder and the CLI alike.
+SP_RANKS = 2
+SP_FRAMES = 9000
+SP_WKV = 4 * 12   # K1 a rank a forward: summary + replay, two directions
+# rows of phase 36 (b)'s f32 check (full width and window; f32 without
+# TF32 through gloo's host copies costs ~0.75 s a row)
+SP_F32_ROWS = 4
+# phase 36 (b): the bf16 sequence-parallel logits may differ from one rank's
+# in bf16 by this many times bf16's own rounding on the model (one rank in
+# bf16 against one rank in f32): on the H100 0.49 times it; with the
+# carried WKV state dropped, 8.8 times
+SP_BF16_NOISE_FACTOR = 1.0
+# phase 36 (b): bf16 forwards timed with the card to the two ranks
+SP_TIMED = 2
+# phase 36 (c): the trained checkpoint's window, the accuracy loop's own
+LOOP_SP_CHUNK = 2000
 
 
 # The flagship model (the JAX package's __graft_entry__.FLAGSHIP_ENCODER and
@@ -3829,14 +3872,18 @@ def phase_attention_search(rng) -> bool:
 # the ported example drivers at their defaults.
 FMT_WINDOWS = 2          # the formats phase's WAV: 2 CLI windows (180 s)
 LOOP_LF_CHUNKS = "2000,4000"
-# the accuracy loop's decode weights (its run_accuracy_loop defaults)
-LOOP_WEIGHTS = ("--ctc_weight", "0.1", "--transducer_weight", "0.9")
-# the bi-RWKV's long-form point only: chunk 2000 (launch-bound, its 1/RTF
-# swings with the host) and the MHA YAML's point (phase 19's encoder_rtf
-# measures it at the same batch and chunk) were cut to keep the script
-# inside its time limit
+# the loop's training epochs, cut from its default 20 to keep the script
+# inside its limit (on the H100, 14 epochs reached WER 0.04 against the
+# 0.1 target and 10 reached 0.085)
+LOOP_EPOCHS = 14
+# phase 29: the bi-RWKV's long-form point only: chunk 2000 (launch-bound,
+# its 1/RTF swings with the host) and the MHA YAML's point (phase 19's
+# encoder_rtf measures it at the same batch and chunk) were cut to keep the
+# script inside its time limit
 RTF_SWEEP_MODELS = "rwkv_bi_12L"
 RTF_SWEEP_CHUNKS = "9000"
+# the accuracy loop's decode weights (its run_accuracy_loop defaults)
+LOOP_WEIGHTS = ("--ctc_weight", "0.1", "--transducer_weight", "0.9")
 
 
 def phase_codec_libs() -> dict:
@@ -4146,14 +4193,16 @@ def _driver(mod: str, argv):
 
 
 def phase_accuracy_loop(work: str):
-    """run_accuracy_loop at its defaults on the card: 384 tone-word
-    utterances through make_shard and compute_cmvn_stats, the init
-    checkpoint decoded by recognize_wav (rnnt_beam_search, beam 8, CTC 0.1
-    / transducer 0.9, 20 s windows) and scored, bin/train for 20 epochs
-    on ~20 s merged utterances, the trained checkpoint decoded and scored:
-    WER must fall and reach 0.1.  Returns (ok, its directory)."""
+    """run_accuracy_loop on the card at its defaults but LOOP_EPOCHS: 384
+    tone-word utterances through make_shard and compute_cmvn_stats, the
+    init checkpoint decoded by recognize_wav (rnnt_beam_search, beam 8,
+    CTC 0.1 / transducer 0.9, 20 s windows) and scored, bin/train for
+    LOOP_EPOCHS epochs on ~20 s merged utterances, the trained checkpoint
+    decoded and scored: WER must fall and reach 0.1.  Returns (ok, its
+    directory)."""
     d = os.path.join(work, "acc_loop")
-    rc, res, wall, counts = _driver("run_accuracy_loop", ["--out", d])
+    rc, res, wall, counts = _driver("run_accuracy_loop", [
+        "--out", d, "--epochs", str(LOOP_EPOCHS)])
     good = (rc == 0 and res is not None and res["improved"]
             and res["wer_trained"] <= 0.1
             and res["wer_trained"] < res["wer_init"]
@@ -4220,25 +4269,59 @@ def phase_lf_sweep(work: str, loop_dir: str) -> bool:
     return good
 
 
-def phase_rtf_sweep(work: str) -> bool:
-    """run_rtf_sweep: one bin/encoder_rtf subprocess per (model, batch 4,
-    chunk) for the bi-RWKV and MHA bench YAMLs x RTF_SWEEP_CHUNKS
-    (bf16, 2 + 10 forwards each), tabled by tools/rtf_tables.  The
-    subprocesses reuse the kernels built in _build/ (their .rtf files say
-    kernels_cached yes)."""
+def _sub_env(tf32: bool = True) -> dict:
+    """The environment of a subprocess of this script: the checkout on
+    PYTHONPATH; ``tf32=False`` turns TF32 off in cuBLAS and cuDNN for
+    subprocesses that compare f32 results (the CLIs set no TF32 flag of
+    their own)."""
+    import paper_accurate_fast_cheap_tpu_torch as pkg
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    if not tf32:
+        env["NVIDIA_TF32_OVERRIDE"] = "0"
+    return env
+
+
+def start_rtf_sweep(work: str):
+    """Phase 29: run_rtf_sweep as a subprocess, started beside phase 36's
+    processes: one bin/encoder_rtf subprocess per (model, batch 4, chunk)
+    for RTF_SWEEP_MODELS x RTF_SWEEP_CHUNKS (bf16, 2 + 10 forwards each),
+    tabled by tools/rtf_tables.  Returns (the process, its directory, its
+    start time)."""
     out = os.path.join(work, "rtf_sweep")
-    rc, _, wall, _ = _driver("run_rtf_sweep", [
-        "--out_dir", out, "--models", RTF_SWEEP_MODELS, "--batches", "4",
-        "--chunks", RTF_SWEEP_CHUNKS, "--timeout", "300"])
+    os.makedirs(out)
+    argv = [sys.executable, "-m", "paper_accurate_fast_cheap_tpu_torch."
+            "examples.gigaspeech.local.run_rtf_sweep", "--out_dir", out,
+            "--models", RTF_SWEEP_MODELS, "--batches", "4", "--chunks",
+            RTF_SWEEP_CHUNKS, "--timeout", "300"]
+    proc = subprocess.Popen(argv, stdout=open(out + ".out", "w"),
+                            stderr=subprocess.STDOUT, env=_sub_env())
+    return proc, out, time.perf_counter()
+
+
+def phase_rtf_sweep(sweep) -> bool:
+    """Phase 29's result: every point's .rtf file, each saying its
+    subprocess reused the kernels built in _build/ (kernels_cached yes),
+    and the summary table.  Its 1/RTF is taken beside phase 36's
+    processes, so it is printed, not compared."""
+    proc, out, t0 = sweep
+    rc = proc.wait(timeout=600)
+    wall = time.perf_counter() - t0
     rtfs = sorted(f for f in os.listdir(out) if f.endswith(".rtf"))
     n = len(RTF_SWEEP_MODELS.split(",")) * len(RTF_SWEEP_CHUNKS.split(","))
     cached = [_rtf_file(os.path.join(out, f))["kernels_cached"]
               for f in rtfs]
     good = rc == 0 and len(rtfs) == n and cached == ["yes"] * n
-    with open(os.path.join(out, "summary.md")) as f:
-        table = [ln for ln in f.read().splitlines() if ln.startswith("| ")]
-    log(f"RTF sweep ({n} subprocesses): {wall:.1f} s; kernels cached "
-        f"{cached}; " + " ; ".join(table[1:]) + f" {'ok' if good else 'FAIL'}")
+    table = []
+    if os.path.exists(os.path.join(out, "summary.md")):
+        with open(os.path.join(out, "summary.md")) as f:
+            table = [ln for ln in f.read().splitlines()
+                     if ln.startswith("| ")]
+    log(f"RTF sweep ({n} subprocesses, beside phase 36): {wall:.1f} s; "
+        f"kernels cached {cached}; " + " ; ".join(table[1:])
+        + (" ok" if good else " FAIL: " + open(out + ".out").read()[-3000:]))
     return good
 
 
@@ -4518,7 +4601,10 @@ FAM_PASSES = {"bitransducer": 1, "ctl": 2, "paraformer": 1, "wav2vec2": 1,
               "w2vbert": 2, "bestrq": 1, "teacher_student": 3}
 ESP_SEARCHES = ("default", "tsd", "alsd", "nsc", "maes")
 ESP_BEAM = 4
-ESP_LM_SECONDS = 5    # the LM-fused runs take the utterance's first 5 s
+# the flagship's utterance and the LM-fused runs' first seconds of it
+# (cut from 20 and 5 s to keep the script inside its limit)
+ESP_SECONDS = 10
+ESP_LM_SECONDS = 3
 WHISPER_SOT = (50258, 50259, 50359, 50363)   # sot, en, transcribe, no ts
 WHISPER_EOT = 50257
 WHISPER_TOKENS = 64
@@ -4844,8 +4930,8 @@ def phase_espnet_searches(work: str, rng) -> bool:
     """Phase 34: the five ESPnet searches (default, TSD, ALSD, NSC, mAES)
     at beam 4 on the flagship (f32).  First the card against the CPU at 2
     blocks on 3 s: tokens identical, scores within 1e-4 relative; then one
-    20 s utterance through the full encoder (K1 24), each search, then on
-    its first 5 s default and mAES with an ARPA 3-gram and default with
+    10 s utterance through the full encoder (K1 24), each search, then on
+    its first 3 s default and mAES with an ARPA 3-gram and default with
     an LG scorer, both built here from seeded token strings.  K3's counter
     equals the predictor calls of each search (counted by a wrapper), no
     other kernel runs, with each search's wall and ms a frame."""
@@ -4891,7 +4977,7 @@ def phase_espnet_searches(work: str, rng) -> bool:
             f"{'ok' if good else 'FAIL'}")
     del small, encs
     model = build_model(seed=72, label="flagship (ESPnet searches)")
-    wav, lens, stats = utterance(20)
+    wav, lens, stats = utterance(ESP_SECONDS)
     feats, flens = pipeline.make_feature_fn({}, stats)(wav.cuda(),
                                                       lens.cuda())
     zero_counts()
@@ -4899,10 +4985,11 @@ def phase_espnet_searches(work: str, rng) -> bool:
     k1 = read_counts()["wkv6_fwd"]
     ok = ok and k1 == 24
     T = int(elens[0])
-    log(f"ESPnet searches: 20 s through the flagship encoder, {T} frames, "
+    log(f"ESPnet searches: {ESP_SECONDS} s through the flagship encoder, "
+        f"{T} frames, "
         f"K1 {k1} (want 24)")
     lms = espnet_lms(work, rng)
-    T_lm = T * ESP_LM_SECONDS // 20
+    T_lm = T * ESP_LM_SECONDS // ESP_SECONDS
     for stype, lm_name in [(s, None) for s in ESP_SEARCHES] + [
             ("default", "3-gram"), ("maes", "3-gram"), ("default", "LG")]:
         frames = T_lm if lm_name else T
@@ -5027,6 +5114,406 @@ def phase_whisper_joint_hlg(rng) -> bool:
     del model
     torch.cuda.empty_cache()
     return ok
+
+
+def _rel(a, b) -> float:
+    """||a - b|| / ||b|| over every element, in f32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def _flagship_sp_rank(rank: int, n: int, init: str, batch: int,
+                      out: str) -> None:
+    """One rank of phase 36 (b): the flagship's encoder + CTC (seeded
+    weights, the CTC blank +2.5) with T sharded over ``n`` ranks, in f32
+    on SP_F32_ROWS rows and in bf16 on every row, each held on rank 0
+    against one rank on the window zero-padded by 6 frames; rank 0 also
+    measures what those 6 frames change.  Then, once ``{out}.go`` exists
+    (every other process of phase 36 has ended), SP_TIMED bf16 forwards
+    timed with the card to the two ranks."""
+    import torch
+    import torch.nn.functional as F
+
+    from paper_accurate_fast_cheap_tpu_torch.models.conformer import (
+        ConformerEncoder)
+    from paper_accurate_fast_cheap_tpu_torch.models.ctc_head import CTCHead
+    from paper_accurate_fast_cheap_tpu_torch.models.layers import (
+        init_default)
+    from paper_accurate_fast_cheap_tpu_torch.ops import wkv6_cuda
+    from paper_accurate_fast_cheap_tpu_torch.parallel import (
+        collectives as cc, mesh as mesh_lib)
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh_lib.init_distributed("cuda", init, n, rank)
+    # the RWKV's bf16 cast off: the f32 check is f32 throughout
+    conf = dict(FLAGSHIP_ENCODER, input_size=80)
+    enc = ConformerEncoder(**conf, rwkv_conf={"rwkv_do_bfloat16": False})
+    ctc = CTCHead(conf["output_size"], VOCAB)
+    g = torch.Generator().manual_seed(5)
+    init_default(enc, g)
+    init_default(ctc, g)
+    with torch.no_grad():
+        ctc.ctc_lo.bias[0] += 2.5
+    sp_enc = ConformerEncoder(**conf, rwkv_conf={
+        "rwkv_do_bfloat16": False, "spmd_axis": "seq"})
+    sp_enc.load_state_dict(enc.state_dict())
+    enc, ctc, sp_enc = (m.to(dev).eval() for m in (enc, ctc, sp_enc))
+    mesh = mesh_lib.make_mesh(n, ("seq",))
+    T, t = SP_FRAMES, SP_FRAMES // n
+    feats = torch.randn(batch, T, 80, generator=torch.Generator(
+        ).manual_seed(6)).to(dev)
+
+    def sp_logits(x):
+        """This rank's shard through the encoder, the encoder output
+        gathered, the CTC head on the whole (as recognize_wav does)."""
+        with mesh:
+            lens = torch.full((x.shape[0],), t, device=dev)
+            y, _ = sp_enc(x[:, rank * t:(rank + 1) * t], lens)
+            return ctc(cc.all_gather(y, "seq", dim=1, tiled=True))
+
+    def one_rank(x, pad):
+        """The unsharded encoder + CTC on the window padded by ``pad``
+        zero frames, unmasked."""
+        y, _ = enc(F.pad(x, (0, 0, 0, pad)),
+                   torch.full((len(x),), T + pad, device=dev))
+        return ctc(y)
+
+    res = {"init_s": time.perf_counter() - t_start}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        f32 = feats[:SP_F32_ROWS]
+        y_sp = sp_logits(f32)
+        torch.cuda.synchronize()
+        res["f32_s"] = time.perf_counter() - t0
+        if rank == 0:
+            y_ref = one_rank(f32, 6)
+            res["f32_max_abs_err"] = float((y_sp - y_ref).abs().max())
+            res["f32_max_abs_ref"] = float(y_ref.abs().max())
+            res["shapes"] = [list(y_sp.shape), list(y_ref.shape)]
+            # the window alone has T / 4 - 1 frames: what the 6 zero
+            # frames change in them
+            y_win = one_rank(f32, 0)
+            pad = y_ref[:, :y_win.shape[1]]
+            res["pad_rel"] = _rel(y_win, pad)
+            res["pad_max_abs"] = float((y_win - pad).abs().max())
+            res["pad_frame0_max_abs"] = float(
+                (y_win[:, 0] - pad[:, 0]).abs().max())
+            del y_win, pad
+        del y_sp
+        sp_enc.to(torch.bfloat16)
+        ctc.to(torch.bfloat16)
+        x = feats.to(torch.bfloat16)
+        y = sp_logits(x)
+        torch.cuda.synchronize()
+        res["bf16_finite"] = bool(torch.isfinite(y).all())
+        if rank == 0:
+            enc.to(torch.bfloat16)
+            y_ref_bf = one_rank(x, 6)
+            res["bf16_rel"] = _rel(y, y_ref_bf)
+            res["bf16_max_abs_err"] = float((y.float() - y_ref_bf.float())
+                                            .abs().max())
+            # bf16's own rounding on this model: one rank in bf16 against
+            # one rank in f32
+            res["bf16_noise_rel"] = _rel(y_ref_bf[:SP_F32_ROWS], y_ref)
+            del y_ref_bf, y_ref
+            enc.cpu()
+        del y
+    open(f"{out}.ready.{rank}", "w").close()
+    t_end = time.perf_counter() + 900
+    while not os.path.exists(f"{out}.go"):
+        if time.perf_counter() > t_end:
+            raise TimeoutError("phase 36 (b): no go after 900 s")
+        time.sleep(0.05)
+    res["bf16_s"], res["wkv6_fwd"] = [], []
+    with torch.no_grad():
+        for _ in range(SP_TIMED):
+            wkv6_cuda.wkv6_cuda.launches = 0
+            cc.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = sp_logits(x)
+            torch.cuda.synchronize()
+            res["bf16_s"].append(time.perf_counter() - t0)
+            res["wkv6_fwd"].append(wkv6_cuda.wkv6_cuda.launches)
+            res["bf16_finite"] &= bool(torch.isfinite(y).all())
+            del y
+    res["collectives"] = cc.read_counts()
+    res["backend"] = mesh_lib.world()[2]
+    torch.save(res, f"{out}.{rank}")
+    torch.distributed.destroy_process_group()
+
+
+def _join_ranks(ctx, timeout: float) -> None:
+    """Join ``torch.multiprocessing`` ranks with a timeout (a hang fails
+    the phase)."""
+    t_end = time.perf_counter() + timeout
+    while not ctx.join(timeout=max(1.0, t_end - time.perf_counter())):
+        if time.perf_counter() > t_end:
+            for p in ctx.processes:
+                p.terminate()
+            raise TimeoutError(f"ranks still running after {timeout} s")
+
+
+def contract_txt(config_path: str, ckpt: str, wav: str, chunk: int,
+                 batch: int) -> bytes:
+    """The TXT that recognize_wav --seq_parallel must write under the
+    sequence-parallel contract, on one rank: each window's features
+    zero-padded by the ds4's 6 frames of right context, the encoder
+    unmasked over them, CTC greedy over the window's own lengths, the
+    CLI's text assembly; f32."""
+    import torch
+    import torch.nn.functional as F
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import (
+        recognize, recognize_wav)
+    from paper_accurate_fast_cheap_tpu_torch.data.audio import (
+        read_audio_bytes, resample_to)
+    from paper_accurate_fast_cheap_tpu_torch.decode import search
+    from paper_accurate_fast_cheap_tpu_torch.utils.config import load_config
+
+    tok, model, _, featurize, _ = recognize.build_decode_assets(
+        load_config(config_path), ckpt)
+    with open(wav, "rb") as f:
+        pcm, sr = resample_to(*read_audio_bytes(f.read()), 16000)
+    win = (chunk - 1) * 160 + 400
+    window = recognize_wav.make_window_slicer(pcm, win, "cuda")
+    text = []
+    with torch.no_grad():
+        for _, s0, slens in recognize_wav.window_batches(len(pcm), chunk,
+                                                         batch):
+            feats, flens = featurize(window(s0), slens)
+            enc, _ = model.forward_encoder(
+                F.pad(feats, (0, 0, 0, 6)),
+                torch.full_like(flens, feats.shape[1] + 6))
+            lens = torch.clamp(((flens - 1) // 2 - 1) // 2, min=0)
+            for r in search.ctc_greedy_search(model.ctc_logprobs(enc),
+                                              lens.cpu().numpy()):
+                if r.tokens:
+                    text.append(tok.detokenize(r.tokens)[0])
+    return (" ".join(text) + "\n").encode()
+
+
+def _rank_lines(text: str) -> dict:
+    """The CLI's per-rank JSON log lines (``log_rank_counts``)."""
+    out = {}
+    for line in text.splitlines():
+        if "seq_parallel rank " in line:
+            head, _, body = line.partition(": {")
+            out[int(head.split("seq_parallel rank ")[1].split()[0])] = \
+                json.loads("{" + body)
+    return out
+
+
+def _wait_all(procs: dict, t0: float, timeout: float) -> dict:
+    """Wait for every process of ``procs``; returns {name: (exit code,
+    seconds from ``t0`` to its end)}.  One still running at ``timeout``
+    is killed and fails."""
+    done, t_end = {}, time.perf_counter() + timeout
+    while len(done) < len(procs):
+        for k, p in procs.items():
+            if k not in done and p.poll() is not None:
+                done[k] = (p.returncode, time.perf_counter() - t0)
+        if time.perf_counter() > t_end:
+            for k, p in procs.items():
+                if k not in done:
+                    p.kill()
+                    done[k] = (-9, time.perf_counter() - t0)
+        time.sleep(0.05)
+    return done
+
+
+def phase_parallel(work: str, paths, card: str, batch: int, loop_dir: str,
+                   beside=()):
+    """Phase 36 (the docstring): the dry run, the flagship sharded over 2
+    ranks, the --seq_parallel CLI under torchrun on the flagship and on
+    the accuracy loop's trained checkpoint (``loop_dir``).  The dry run,
+    the three torchrun CLIs and (b)'s ranks start together, beside the
+    processes ``beside`` (phase 29's sweep), while this process runs the
+    single-rank CLIs and the contract's TXT; (b)'s timed forwards wait
+    until all of those have ended, so the two ranks have the card to
+    themselves.  Returns (ok, K1 launches a rank a timed forward)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from paper_accurate_fast_cheap_tpu_torch.bin import recognize_wav
+    from paper_accurate_fast_cheap_tpu_torch.examples.gigaspeech.local \
+        import run_impl_matrix
+    from paper_accurate_fast_cheap_tpu_torch.tools import wer
+
+    t0 = time.perf_counter()
+    d = os.path.join(work, "parallel")
+    os.makedirs(d)
+    wav = os.path.join(work, "formats", "wav", "lf.wav")
+
+    def f32_config(conf: dict, name: str) -> str:
+        """``conf`` with the RWKV's bf16 cast off, as JSON: the greedy TXT
+        comparisons run in f32 throughout (bf16 rounding would move the
+        argmax of near ties)."""
+        conf = dict(conf, encoder_conf=dict(conf["encoder_conf"],
+                                            rwkv_do_bfloat16=False))
+        path = os.path.join(d, name)
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        return path
+
+    with open(paths["standard.json"]) as f:
+        f32_json = f32_config(json.load(f), "standard_f32.json")
+    loop_conf = _yaml(os.path.join(loop_dir, "config.yaml"))
+    loop_blocks = loop_conf["encoder_conf"]["num_blocks"]
+    cli = ["--checkpoint", paths["standard.pt"], "--wav", wav,
+           "--chunk_size", str(SP_FRAMES), "--batch_size", "2",
+           "--beam_size", str(BEAM)]
+    trained_cli = [
+        "--config", f32_config(loop_conf, "trained_f32.json"),
+        "--checkpoint", run_impl_matrix.newest_epoch(
+            os.path.join(loop_dir, "exp")),
+        "--wav", os.path.join(loop_dir, "longform", "ep0.wav"),
+        "--chunk_size", str(LOOP_SP_CHUNK), "--batch_size", "2",
+        "--precision", "fp32", "--mode", "ctc_greedy_search"]
+    runs = {"ctc_greedy_search": cli + [
+                "--config", f32_json, "--precision", "fp32", "--mode",
+                "ctc_greedy_search"],
+            "rnnt_beam_search": cli + [
+                "--config", paths["standard.json"], "--mode",
+                "rnnt_beam_search"],
+            "trained": trained_cli}
+    procs = {"dryrun": [sys.executable, "-m",
+                        "paper_accurate_fast_cheap_tpu_torch.parallel.dryrun",
+                        "--n", "4"]}
+    for name, argv in runs.items():
+        procs[name] = [
+            sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(SP_RANKS), "-m",
+            "paper_accurate_fast_cheap_tpu_torch.bin.recognize_wav", *argv,
+            "--seq_parallel", str(SP_RANKS), "--output_dir",
+            os.path.join(d, name)]
+    env = _sub_env(tf32=False)
+    running = {k: subprocess.Popen(
+        c, stdout=open(os.path.join(d, k + ".out"), "w"),
+        stderr=subprocess.STDOUT, env=env) for k, c in procs.items()}
+
+    ok = True
+    out = os.path.join(d, "flagship")
+    ranks = mp.start_processes(
+        _flagship_sp_rank, args=(SP_RANKS, f"file://{d}/rendezvous", batch,
+                                 out), nprocs=SP_RANKS, join=False,
+        start_method="spawn")
+    # the single-rank CLIs and the contract's TXT while the ranks run
+    zero_counts()
+    one = os.path.join(d, "one")
+    rc1 = recognize_wav.main(runs["ctc_greedy_search"] + [
+        "--output_dir", one])
+    one_counts = read_counts()
+    txt_contract = contract_txt(f32_json, paths["standard.pt"], wav,
+                                SP_FRAMES, 2)
+    zero_counts()
+    one_trained = os.path.join(d, "one_trained")
+    rc1t = recognize_wav.main(trained_cli + ["--output_dir", one_trained])
+    one_trained_counts = read_counts()
+    rcs = _wait_all({**running, **{f"beside {i}": p for i, p in
+                                   enumerate(beside)}}, t0, 600)
+    t_others = time.perf_counter() - t0
+    open(f"{out}.go", "w").close()
+    _join_ranks(ranks, 300)
+    r = [torch.load(f"{out}.{i}") for i in range(SP_RANKS)]
+    rel = r[0]["f32_max_abs_err"] / r[0]["f32_max_abs_ref"]
+    bf16_bound = SP_BF16_NOISE_FACTOR * r[0]["bf16_noise_rel"]
+    good = (rel < 1e-4 and r[0]["bf16_rel"] <= bf16_bound
+            and all(x["wkv6_fwd"] == [SP_WKV] * SP_TIMED for x in r)
+            and all(x["bf16_finite"] for x in r))
+    ok = ok and good
+    c = r[0]["collectives"]
+    log(f"parallel (b) [{card}]: flagship encoder + CTC, {batch} x "
+        f"{SP_FRAMES} frames over {SP_RANKS} ranks ({r[0]['backend']}), "
+        f"each against one rank on the window zero-padded by 6 frames: f32 "
+        f"({SP_F32_ROWS} rows) max abs err {r[0]['f32_max_abs_err']:.3e} "
+        f"(|ref| max {r[0]['f32_max_abs_ref']:.3f}, rel {rel:.3e} < 1e-4, "
+        f"shapes {r[0]['shapes']}); bf16 ({batch} rows) ||err|| / ||ref|| "
+        f"{r[0]['bf16_rel']:.3e} (max abs err "
+        f"{r[0]['bf16_max_abs_err']:.3e}) <= {SP_BF16_NOISE_FACTOR} x "
+        f"bf16's own, one rank bf16 vs f32 ({SP_F32_ROWS} rows), "
+        f"{r[0]['bf16_noise_rel']:.3e}; the 6 zero frames move one rank's "
+        f"f32 logits by ||d|| / ||ref|| {r[0]['pad_rel']:.3e} (max abs "
+        f"{r[0]['pad_max_abs']:.3f}, at frame 0 "
+        f"{r[0]['pad_frame0_max_abs']:.3f}); init {r[0]['init_s']:.1f} s, "
+        f"the f32 sp forward {r[0]['f32_s']:.3f} s (beside the other "
+        f"processes); bf16 forwards with the card to the ranks "
+        f"{[[round(v, 4) for v in x['bf16_s']] for x in r]} s a rank, K1 "
+        f"{[x['wkv6_fwd'] for x in r]} (want {SP_WKV} a forward); rank 0's "
+        f"collectives a forward {json.dumps(c)} {'ok' if good else 'FAIL'}")
+
+    texts = {k: open(os.path.join(d, k + ".out")).read() for k in procs}
+    ends = {k: round(v[1], 1) for k, v in rcs.items()}
+    log(f"parallel: seconds to each process's end {json.dumps(ends)}, "
+        f"(b)'s timed forwards from {t_others:.1f} s")
+    dry = (json.loads(texts["dryrun"].strip().splitlines()[-1])
+           if rcs["dryrun"][0] == 0 else {})
+    for line in texts["dryrun"].splitlines():
+        if line.startswith("dryrun_multichip"):
+            log(f"parallel (a) [{card}]: {line}")
+    good = rcs["dryrun"][0] == 0 and len(dry.get("errors", {})) == 7
+    ok = ok and good
+    log(f"parallel (a): backend {dry.get('backend')}, rank 0's collectives "
+        f"{json.dumps(dry.get('collectives'))} "
+        f"{'ok' if good else 'FAIL: ' + texts['dryrun'][-3000:]}")
+
+    def txt(path: str, rc: int) -> bytes:
+        return open(path, "rb").read() if rc == 0 else b""
+
+    txt_one = txt(os.path.join(one, "lf.txt"), rc1)
+    txt_sp = txt(os.path.join(d, "ctc_greedy_search", "lf.txt"),
+                 rcs["ctc_greedy_search"][0])
+    greedy = _rank_lines(texts["ctc_greedy_search"])
+    good = (txt_sp == txt_contract and len(txt_sp.split()) > 0
+            and one_counts["wkv6_fwd"] == 24
+            and all(greedy[i]["launches"]["wkv6_fwd"] == SP_WKV
+                    for i in range(SP_RANKS)))
+    ok = ok and good
+    gap = wer.align_words(txt_one.split(), txt_sp.split())
+    log(f"parallel (c) [{card}]: --seq_parallel {SP_RANKS} "
+        f"ctc_greedy_search (f32, the random flagship) TXT "
+        f"{len(txt_sp.split())} words, byte for byte the contract's (one "
+        f"rank, each window zero-padded by 6 frames, unmasked): "
+        f"{txt_sp == txt_contract}; against the single-rank CLI "
+        f"({len(txt_one.split())} words, K1 {one_counts['wkv6_fwd']}): "
+        f"byte for byte {txt_sp == txt_one}, WER {gap.wer:.4f} (sub "
+        f"{gap.sub}, ins {gap.ins}, del {gap.dele}; the 6 frames move this "
+        f"random encoder's logits, (b)); "
+        f"ranks {json.dumps(greedy)} "
+        f"{'ok' if good else 'FAIL: ' + texts['ctc_greedy_search'][-3000:]}")
+    txt_1t = txt(os.path.join(one_trained, "ep0.txt"), rc1t)
+    txt_spt = txt(os.path.join(d, "trained", "ep0.txt"), rcs["trained"][0])
+    trained = _rank_lines(texts["trained"])
+    good = (txt_spt == txt_1t and len(txt_spt.split()) > 0
+            and one_trained_counts["wkv6_fwd"] == 2 * loop_blocks
+            and all(trained[i]["launches"]["wkv6_fwd"] == 4 * loop_blocks
+                    for i in range(SP_RANKS)))
+    ok = ok and good
+    log(f"parallel (c) [{card}]: --seq_parallel {SP_RANKS} "
+        f"ctc_greedy_search (f32) on the accuracy loop's trained checkpoint "
+        f"and its 30 s episode ep0 at chunk {LOOP_SP_CHUNK}: TXT "
+        f"{len(txt_spt.split())} words, byte for byte the single-rank "
+        f"CLI's ({len(txt_1t.split())} words, K1 "
+        f"{one_trained_counts['wkv6_fwd']}): {txt_spt == txt_1t}; ranks "
+        f"{json.dumps(trained)} "
+        f"{'ok' if good else 'FAIL: ' + texts['trained'][-3000:]}")
+    beam = _rank_lines(texts["rnnt_beam_search"])
+    frames = SP_FRAMES // 4
+    want = {0: {"wkv6_fwd": SP_WKV, "joint_topk": frames,
+                "lstm_step": frames + 1},
+            1: {"wkv6_fwd": SP_WKV, "joint_topk": 0, "lstm_step": 0}}
+    good = (rcs["rnnt_beam_search"][0] == 0
+            and all(beam[i]["launches"] == want[i] for i in want)
+            and len(beam[0].get("best_scores", [])) == 2)
+    ok = ok and good
+    log(f"parallel (c) [{card}]: --seq_parallel {SP_RANKS} rnnt_beam_search "
+        f"ranks {json.dumps(beam)}, want launches {json.dumps(want)} "
+        f"{'ok' if good else 'FAIL: ' + texts['rnnt_beam_search'][-3000:]}")
+    log(f"parallel phase: {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, r[0]["wkv6_fwd"][0]
 
 
 def main() -> int:
@@ -5266,9 +5753,16 @@ def main() -> int:
         if not phase_lf_sweep(work, loop_dir):
             failed.append("LF sweep")
         lap("impl matrix, LF sweep")
-        if not phase_rtf_sweep(work):
+        torch.cuda.empty_cache()
+        sweep = start_rtf_sweep(work)
+        par_ok, sp_wkv = phase_parallel(work, paths, card, args.batch,
+                                        loop_dir, beside=[sweep[0]])
+        if not par_ok:
+            failed.append("parallel (dry run, sharded flagship, "
+                          "--seq_parallel CLI)")
+        if not phase_rtf_sweep(sweep):
             failed.append("RTF sweep")
-        lap("RTF sweep")
+        lap("parallel, RTF sweep")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failed:
@@ -5301,12 +5795,19 @@ def main() -> int:
         n, path = launches[row["name"]]
         row.update(route="cuda", source=src, replaces=rep, launches=n,
                    launches_path=path)
+        if row["name"] == "wkv6_fwd":
+            row["sequence_parallel_launches"] = sp_wkv
+            row["sequence_parallel_path"] = (
+                f"phase 36 (b): one bf16 forward of the flagship's encoder "
+                f"at {args.batch} x {SP_FRAMES} frames, T over {SP_RANKS} "
+                "ranks, per rank")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_path", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},
-         **{k: v for k, v in row.items() if k.startswith("streaming_")}}
+         **{k: v for k, v in row.items()
+            if k.startswith(("streaming_", "sequence_parallel_"))}}
         for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

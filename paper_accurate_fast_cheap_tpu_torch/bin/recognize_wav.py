@@ -26,17 +26,34 @@ parameters).  ``--verbatimicity`` v gives every window ``cat_embs = [v,
 1 - v]``, which mixes the language-specific blocks of an LSL encoder (as in
 JAX, a YAML builds no LSL blocks, so a model from a YAML ignores it).  Every
 encoder family of the factory decodes; the CTM's frame rate is 40 ms
-whatever the subsampling, as in the JAX CLI.  ``--seq_parallel`` > 1 needs
-modules not ported yet and raises.
+whatever the subsampling, as in the JAX CLI.
+
+``--seq_parallel n`` runs under ``torchrun --nproc_per_node n`` (the
+process group from its environment; ``nccl`` when each rank has a card of
+its own, ``gloo`` when the ranks share one or run on the CPU): each rank
+runs the encoder on its 1/n of every window's frames (``rwkv_conf
+spmd_axis``: the halo'd ds4 subsampling, the sequence-parallel WKV through
+K1's carried state, the conv module's halo), the encoder output is
+gathered, and rank 0 runs CTC and the search and writes the TXT, CTM and
+logs.  Each window decodes with full-length semantics, as if zero-padded
+by the ds4's 6 frames of right context (``parallel/sequence.py``); its
+lengths are the window's.  As in JAX: ``--chunk_size`` must divide by
+4 n, and ``--verbatimicity`` is refused.  Each rank logs its kernel
+launches and its collectives' calls and bytes, rank 0 each window's best
+score.
 
 Usage:
   python -m paper_accurate_fast_cheap_tpu_torch.bin.recognize_wav \\
       --config conf.yaml --checkpoint model.pt --wav episode.wav \\
       --output_dir out --mode rnnt_beam_search [--device cpu]
+  torchrun --nproc_per_node 2 -m \\
+      paper_accurate_fast_cheap_tpu_torch.bin.recognize_wav ... \\
+      --seq_parallel 2 [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -90,7 +107,9 @@ def get_args(argv=None):
                    help="tokens of the top hypothesis the beam aligns "
                         "itself (0: max(64, chunk_size // 16))")
     p.add_argument("--seq_parallel", type=int, default=0,
-                   help="sequence-parallel encoder: not ported")
+                   help="shard each window's time axis over this many "
+                        "ranks (under torchrun); chunk_size must divide by "
+                        "4*N")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p.parse_args(argv)
 
@@ -132,9 +151,6 @@ def make_window_slicer(wav: np.ndarray, win_samples: int, device):
 
 
 def _check_flags(args) -> None:
-    if args.seq_parallel > 1:
-        raise NotImplementedError(
-            "not ported yet: --seq_parallel (ROADMAP Queue 1, item 14)")
     given = [f"--{k}" for k, d in _IGNORED.items() if getattr(args, k) != d]
     if given:
         logging.info("%s: TPU dispatch choices of the JAX CLI; accepted "
@@ -153,10 +169,37 @@ def main(argv=None):
     from paper_accurate_fast_cheap_tpu_torch.decode import (
         rnnt_search, search)
     from paper_accurate_fast_cheap_tpu_torch.ops import ctc_utils
+    from paper_accurate_fast_cheap_tpu_torch.parallel import (
+        collectives, mesh as mesh_lib)
     from paper_accurate_fast_cheap_tpu_torch.utils.config import load_config
 
-    dev = resolve_device(args.device)
+    n_sp = args.seq_parallel if args.seq_parallel > 1 else 0
+    rank, mesh = 0, None
+    if n_sp:
+        if args.verbatimicity is not None:
+            raise SystemExit("--seq_parallel with cat_embs not supported")
+        if args.chunk_size % (4 * n_sp):
+            raise SystemExit(f"--chunk_size must divide by 4*{n_sp}")
+        dev = (mesh_lib.init_distributed(args.device)
+               if "RANK" in os.environ and not
+               torch.distributed.is_initialized() else
+               resolve_device(args.device))
+        rank, world, _ = mesh_lib.world()
+        if world != n_sp:
+            raise SystemExit(f"--seq_parallel {n_sp} needs {n_sp} ranks "
+                             f"(have {world}; run under torchrun "
+                             f"--nproc_per_node {n_sp})")
+        mesh = mesh_lib.make_mesh(n_sp, ("seq",))
+        logging.info("sequence-parallel decode: T sharded over %d ranks "
+                     "(this is rank %d)", n_sp, rank)
+    else:
+        dev = resolve_device(args.device)
     config = load_config(args.config)
+    if n_sp:
+        # the factory routes encoder_conf's spmd_axis into rwkv_conf (the
+        # JAX CLI nests an rwkv_conf that its factory drops)
+        config = dict(config, encoder_conf=dict(
+            config.get("encoder_conf", {}), spmd_axis="seq"))
     if args.encoder_context_size > 0:
         n = args.encoder_context_size
         config = dict(config, encoder_conf=dict(
@@ -185,7 +228,8 @@ def main(argv=None):
     t_start = time.perf_counter()
 
     name = os.path.splitext(os.path.basename(args.wav))[0]
-    os.makedirs(args.output_dir, exist_ok=True)
+    if not rank:
+        os.makedirs(args.output_dir, exist_ok=True)
     # conv2d ds4's frame rate, 0.04 s, for every subsampling (the JAX CLI's
     # rule)
     subsample = 4
@@ -199,19 +243,33 @@ def main(argv=None):
 
     ctm_lines = []
     all_text = []
+    best_scores = []      # each window's best hypothesis score
     batch_done = []       # wall clock when each batch's results landed
     batch_audio = []      # decoded audio seconds per batch
     win_samples = (args.chunk_size - 1) * frame_shift + frame_length
     window_slice = make_window_slicer(wav, win_samples, dev)
 
+    def encode(feats, feat_lens):
+        if not n_sp:
+            return model.forward_encoder(
+                feats, feat_lens, cat_embs=None if cat_embs is None
+                else cat_embs.expand(feats.shape[0], -1))
+        t_loc = feats.shape[1] // n_sp
+        with mesh:
+            enc, enc_lens = model.forward_encoder(
+                feats[:, rank * t_loc:(rank + 1) * t_loc], feat_lens)
+            return (collectives.all_gather(enc, "seq", dim=1, tiled=True),
+                    enc_lens)
+
     def dispatch(s0, slens):
-        """Enqueue one batch's device work; nothing is read back."""
+        """Enqueue one batch's device work; nothing is read back.  Under
+        ``--seq_parallel`` only rank 0 goes past the encoder."""
         feats, feat_lens = featurize(window_slice(s0), slens)
         if args.precision == "bf16":
             feats = feats.to(torch.bfloat16)
-        enc, enc_lens = model.forward_encoder(
-            feats, feat_lens, cat_embs=None if cat_embs is None
-            else cat_embs.expand(feats.shape[0], -1))
+        enc, enc_lens = encode(feats, feat_lens)
+        if rank:
+            return None
         logp = model.ctc_logprobs(enc)
         payload = None
         if beam:
@@ -255,6 +313,7 @@ def main(argv=None):
                 logp, lens_np, [res[b].tokens if b in need_align else []
                                 for b in range(len(res))])
             alis.update({b: batch_ali[b] for b in need_align})
+        best_scores.extend(float(r.score) for r in res[:len(group)])
         for start_frame, r, b in zip(group, res, range(len(res))):
             if not r.tokens:
                 continue
@@ -285,12 +344,20 @@ def main(argv=None):
         for group, s0, slens in window_batches(len(wav), args.chunk_size,
                                                args.batch_size,
                                                frame_shift, frame_length):
-            entry = (group, slens) + dispatch(s0, slens)
+            out = dispatch(s0, slens)
+            if rank:
+                continue
+            entry = (group, slens) + out
             if pending is not None:
                 finalize(pending)
             pending = entry
         if pending is not None:
             finalize(pending)
+    if n_sp:
+        log_rank_counts(rank, n_sp, best_scores)
+        torch.distributed.destroy_process_group()
+        if rank:
+            return 0
 
     elapsed = time.perf_counter() - t_start
     rtf = elapsed / max(audio_seconds, 1e-9)
@@ -329,6 +396,21 @@ def main(argv=None):
                  "%.4f = %.0fx realtime)", name, audio_seconds, elapsed,
                  rtf, steady_rtf, 1.0 / max(steady_rtf, 1e-9))
     return 0
+
+
+def log_rank_counts(rank: int, n: int, best_scores) -> None:
+    """This rank's kernel launches, collectives (calls, bytes) and, on rank
+    0, each window's best score, as one JSON object in the log."""
+    from paper_accurate_fast_cheap_tpu_torch.ops import (
+        joint_topk, lstm_step, wkv6_cuda)
+    from paper_accurate_fast_cheap_tpu_torch.parallel import collectives
+
+    counts = {"wkv6_fwd": wkv6_cuda.wkv6_cuda.launches,
+              "joint_topk": joint_topk.joint_top_k_vocab.launches,
+              "lstm_step": lstm_step.lstm_predictor_step.launches}
+    logging.info("seq_parallel rank %d of %d: %s", rank, n, json.dumps(
+        {"launches": counts, "collectives": collectives.read_counts(),
+         "best_scores": best_scores}))
 
 
 def device_memory_stats(device) -> dict:

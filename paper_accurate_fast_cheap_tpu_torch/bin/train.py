@@ -12,14 +12,28 @@ weights, ``accum_grad`` and ``clip_hard_maxvalue``.  ``--checkpoint``
 resumes from a checkpoint name or its ``.pt`` file: the model, the
 optimizer state when saved, and the step and epoch from its sidecar.  The
 run directory gets ``train.yaml``, ``logs/metrics.jsonl`` and the
-checkpoints (``train/checkpointing.py``).  ``--multichip``,
-``--pp_stages`` and ``--dist_*`` wait for ``torch.distributed`` (ROADMAP
-Queue 1, item 14) and raise.
+checkpoints (``train/checkpointing.py``).
+
+Ranks (``torch.distributed``, ``parallel/``): ``--dist_auto`` takes the
+process group from torchrun's environment, ``--dist_coordinator host:port
+--dist_num_processes N --dist_process_id i`` from a coordinator; the
+backend is ``nccl`` when every rank has a card of its own and ``gloo``
+when ranks share a card or run on the CPU (``parallel/mesh.choose_backend``).
+``--multichip``: data parallelism over the world group: every rank builds
+the same global batch (the same shuffle seed) and takes its slice, and the
+gradients are averaged over the ranks before the clip.  ``--pp_stages S``
+(a world of S ranks): the encoder's blocks pipelined over the ranks (GPipe,
+``--pp_microbatches`` microbatches, default S; the blocks without dropout),
+the block gradients summed over the stages.  Only rank 0 writes the run
+directory (config, logs, checkpoints).
 
 Usage:
   python -m paper_accurate_fast_cheap_tpu_torch.bin.train \\
       --config conf/train.yaml --train_data shards.txt --cv_data cv.txt \\
       --data_type shard --model_dir exp/run1 [--device cpu]
+  torchrun --nproc_per_node 2 \\
+      -m paper_accurate_fast_cheap_tpu_torch.bin.train \\
+      ... --dist_auto --multichip [--device cpu]
 """
 from __future__ import annotations
 
@@ -45,13 +59,18 @@ def get_args(argv=None):
     p.add_argument("--num_epochs", type=int, default=None)
     p.add_argument("--seed", type=int, default=777)
     p.add_argument("--multichip", action="store_true",
-                   help="data parallel over the local cards: not ported")
+                   help="data parallel over every rank of the process "
+                        "group")
     p.add_argument("--pp_stages", type=int, default=0,
-                   help="pipeline parallel: not ported")
-    p.add_argument("--pp_microbatches", type=int, default=None)
+                   help="pipeline parallel: the encoder's blocks over this "
+                        "many ranks (GPipe; no dropout in the blocks)")
+    p.add_argument("--pp_microbatches", type=int, default=None,
+                   help="microbatches for --pp_stages (default = stages)")
     p.add_argument("--dist_auto", action="store_true",
-                   help="multi-host launch: not ported")
-    p.add_argument("--dist_coordinator", default=None)
+                   help="process group from torchrun's environment")
+    p.add_argument("--dist_coordinator", default=None,
+                   help="coordinator host:port (every process passes the "
+                        "same value)")
     p.add_argument("--dist_num_processes", type=int, default=None)
     p.add_argument("--dist_process_id", type=int, default=None)
     p.add_argument("--print_model", action="store_true")
@@ -64,29 +83,54 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def _check_flags(args) -> None:
-    unported = [f for f, on in (
-        ("--multichip", args.multichip), ("--pp_stages", args.pp_stages),
-        ("--dist_auto", args.dist_auto),
-        ("--dist_coordinator", args.dist_coordinator)) if on]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: parallel training waits for "
-            "torch.distributed (ROADMAP Queue 1, item 14)")
+def _init_ranks(args):
+    """(device, rank, the parallel mesh or None) from the ``--dist_*``,
+    ``--multichip`` and ``--pp_stages`` flags."""
+    from paper_accurate_fast_cheap_tpu_torch import resolve_device
+    from paper_accurate_fast_cheap_tpu_torch.parallel import mesh as mesh_lib
+
+    dev = None
+    if args.dist_auto:
+        dev = mesh_lib.init_distributed(args.device)
+    elif args.dist_coordinator:
+        dev = mesh_lib.init_distributed(
+            args.device, args.dist_coordinator, args.dist_num_processes,
+            args.dist_process_id)
+    dev = dev or resolve_device(args.device)
+    rank, world, _ = mesh_lib.world()
+    if args.multichip and args.pp_stages:
+        raise ValueError("--multichip and --pp_stages: one parallel form "
+                         "at a time")
+    mesh = None
+    if args.multichip:
+        if world < 2:
+            raise ValueError("--multichip needs an initialised process "
+                             "group of more than one rank (--dist_auto "
+                             "under torchrun, or --dist_coordinator)")
+        mesh = mesh_lib.make_mesh(world, ("data",))
+        logging.info("data parallelism over %d ranks", world)
+    elif args.pp_stages:
+        if world != args.pp_stages:
+            raise ValueError(f"--pp_stages {args.pp_stages} needs a process "
+                             f"group of that many ranks (have {world})")
+        mesh = mesh_lib.make_mesh(world, ("stage",))
+        logging.info("pipeline parallelism: %d stages", world)
+    return dev, rank, mesh
 
 
 def main(argv=None):
     args = get_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
-    _check_flags(args)
-    from paper_accurate_fast_cheap_tpu_torch import resolve_device
+    dev, rank, mesh = _init_ranks(args)
     from paper_accurate_fast_cheap_tpu_torch.data import (
         pipeline as data_pipeline)
     from paper_accurate_fast_cheap_tpu_torch.frontend import cmvn as cmvn_lib
     from paper_accurate_fast_cheap_tpu_torch.frontend.pipeline import (
         make_feature_fn)
     from paper_accurate_fast_cheap_tpu_torch.models import factory
+    from paper_accurate_fast_cheap_tpu_torch.parallel import (
+        mesh as mesh_lib, pp_encoder)
     from paper_accurate_fast_cheap_tpu_torch.text.tokenizers import (
         init_tokenizer)
     from paper_accurate_fast_cheap_tpu_torch.train import (
@@ -97,7 +141,6 @@ def main(argv=None):
     from paper_accurate_fast_cheap_tpu_torch.utils.config import (
         load_config, override_config, save_config)
 
-    dev = resolve_device(args.device)
     config = override_config(load_config(args.config),
                              args.override_config)
     tokenizer = init_tokenizer(config)
@@ -142,6 +185,16 @@ def main(argv=None):
         return out["loss"], {k: v.detach() for k, v in out.items()
                              if k != "loss"}
 
+    grad_sync = batch_shard = None
+    if args.multichip:
+        mesh_lib.share_counts(mesh, model)
+        grad_sync = mesh_lib.dp_sync(mesh)
+        batch_shard = lambda b: mesh_lib.shard_batch(mesh, b)  # noqa: E731
+    elif args.pp_stages:
+        loss_fn = pp_encoder.make_pp_loss_fn(
+            model, mesh, n_microbatches=args.pp_microbatches)
+        grad_sync = pp_encoder.pp_grad_sync(model, mesh)
+
     train_dtype = str(config.get("dtype", "fp32")).lower()
     if train_dtype in ("bf16", "bfloat16"):
         loss_fn = ts.wrap_mixed_precision(loss_fn)
@@ -153,7 +206,7 @@ def main(argv=None):
     step_fn = ts.make_train_step(
         loss_fn, optimizer, accum_steps=accum,
         clip_hard_maxvalue=config.get("clip_hard_maxvalue", 0.0),
-        trainable_mask=trainable_mask)
+        trainable_mask=trainable_mask, grad_sync=grad_sync)
     state = ts.init_train_state(params, optimizer)
 
     start_epoch = 0
@@ -190,13 +243,17 @@ def main(argv=None):
         sd.update({n: t.detach() for n, t in p.items()})
         return sd
 
-    os.makedirs(args.model_dir, exist_ok=True)
-    save_config(config, os.path.join(args.model_dir, "train.yaml"))
-    logger = MetricsLogger(os.path.join(args.model_dir, "logs"),
-                           use_wandb=args.use_wandb,
-                           wandb_config={"project": args.wandb_project,
-                                         "config": config})
-    if args.use_wandb:
+    # only rank 0 writes the run directory
+    model_dir = args.model_dir if rank == 0 else None
+    logger = None
+    if model_dir:
+        os.makedirs(model_dir, exist_ok=True)
+        save_config(config, os.path.join(model_dir, "train.yaml"))
+        logger = MetricsLogger(os.path.join(model_dir, "logs"),
+                               use_wandb=args.use_wandb,
+                               wandb_config={"project": args.wandb_project,
+                                             "config": config})
+    if logger is not None and args.use_wandb:
         tok_conf = config.get("tokenizer_conf", {})
         logger.log_run_artifacts(
             code_dir=os.path.dirname(os.path.dirname(
@@ -206,13 +263,14 @@ def main(argv=None):
                              tok_conf.get("bpe_path")])
     snap_conf = config.get("snapshot_saving_conf", {})
     ex = executor_lib.Executor(
-        step_fn, eval_loss, featurize, model_dir=args.model_dir,
+        step_fn, eval_loss, featurize, model_dir=model_dir,
         log_interval=config.get("log_interval", 100),
         save_interval=snap_conf.get("save_interval", 0),
         save_optimizer_every=snap_conf.get("save_optimizer_every", 10),
         use_named_snapshots=snap_conf.get("use_named_snapshots", False),
         seed=args.seed, metrics_logger=logger, device=dev,
-        state_dict_of=state_dict_of, accum_steps=accum)
+        state_dict_of=state_dict_of, accum_steps=accum,
+        batch_shard=batch_shard)
     ex.step = int(state.step)
     num_epochs = args.num_epochs or config.get("max_epoch", 1)
 
@@ -239,7 +297,10 @@ def main(argv=None):
             logging.info("epoch %d done, cv_loss=%s", epoch, cv_loss)
             ex.save_epoch(state, epoch, cv_loss)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return 0
 
 

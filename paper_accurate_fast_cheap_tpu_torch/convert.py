@@ -4,7 +4,7 @@ The port names its submodules after the flax tree (``encoder.layer_{i}``,
 ``encoder.RWKVAttention_{i}.tmix``,
 ``encoder.RelPositionMultiHeadedAttention_{i}.linear_pos``,
 ``encoder.MambaAttention_{i}.mamba_fwd.in_proj``,
-``predictor.lstm_{i}.ih``, ``joint.ffn_out``,
+``predictor.lstm_{i}.ih``, ``joint.ffn_out``, ``joint.post_ffn``,
 ``decoder.left_decoder.layer_{i}.self_attn.linear_q``, ...) for the
 ``Transducer`` and ``ASRModel`` trees and those of the other families
 (``BiTransducer``, ``ContextAdaptor``, ``CTLModel``, ``Paraformer``, the SSL

@@ -26,6 +26,10 @@ from paper_accurate_fast_cheap_tpu_torch.ops.common import IGNORE_ID
 
 
 class ASRModel(nn.Module):
+    # maps a loss's count to the one this rank's shard stands for
+    # (``ops/common.normaliser``; set by ``parallel/mesh.share_counts``)
+    count_sync = None
+
     def __init__(self, vocab_size: int, encoder_conf: dict,
                  decoder_conf: Optional[dict] = None,
                  ctc_weight: float = 0.3, reverse_weight: float = 0.0,
@@ -61,6 +65,12 @@ class ASRModel(nn.Module):
         ``.train()``/``.eval()``."""
         enc_kw = {} if cat_embs is None else {"cat_embs": cat_embs}
         enc, enc_lens = self.encoder(feats, feat_lens, **enc_kw)
+        return self.loss_from_encoder(enc, enc_lens, labels, label_lens)
+
+    def loss_from_encoder(self, enc: torch.Tensor, enc_lens: torch.Tensor,
+                          labels: torch.Tensor, label_lens: torch.Tensor):
+        """The post-encoder half of ``forward`` (JAX's
+        ``loss_from_encoder``), for the pipelined trainer."""
         zero = torch.zeros((), device=enc.device)
         loss_ctc = zero
         if self.ctc_weight > 0.0:
@@ -71,7 +81,7 @@ class ASRModel(nn.Module):
             loss_att, acc_att = attention_loss(
                 self.decoder, enc, enc_lens, labels, label_lens, self.sos,
                 self.eos, self.reverse_weight, self.lsm_weight,
-                self.ignore_id, self.length_normalized_loss)
+                self.ignore_id, self.length_normalized_loss, self.count_sync)
         loss = self.ctc_weight * loss_ctc + (1.0 - self.ctc_weight) * loss_att
         return {"loss": loss, "loss_ctc": loss_ctc, "loss_att": loss_att,
                 "th_accuracy": acc_att}

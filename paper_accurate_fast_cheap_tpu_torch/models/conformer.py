@@ -29,6 +29,12 @@ attentions never read the mask; MHA, its rel-pos variants and LCA do.
 the block's parameters from the module, so a functional train step binds
 them there (``train/train_step.bind_params``).
 
+Sequence parallelism (``rwkv_conf["spmd_axis"]``, as JAX): the encoder
+runs on this rank's T-shard inside an active mesh with that axis; the
+conv2d (ds4) subsampling takes its right halo, the RWKV or Mamba-2
+attention and the conv module take theirs, and no pad mask, attention mask
+or lengths reach the blocks (full-length sequences).
+
 Streaming (``return_state``): the chunk is fully valid, so no mask is made;
 each layer carries ``{"attn", "conv"}``: the uni RWKV's (x_prev, WKV state),
 the uni Mamba's {"conv", "ssd"} or the MHA's fixed-size KV cache (the last
@@ -69,6 +75,7 @@ from paper_accurate_fast_cheap_tpu_torch.models.mamba import MambaAttention
 from paper_accurate_fast_cheap_tpu_torch.models.rwkv import RWKVAttention
 from paper_accurate_fast_cheap_tpu_torch.models.subsampling import (
     SUBSAMPLE_CLASSES)
+from paper_accurate_fast_cheap_tpu_torch.parallel import collectives as cc
 from paper_accurate_fast_cheap_tpu_torch.utils.masks import (
     add_optional_chunk_mask, make_pad_mask)
 
@@ -111,7 +118,8 @@ def _make_attention(layer_type: str, heads: int, d_model: int,
             layer_id=layer_id,
             do_bfloat16=rwkv_conf.get("rwkv_do_bfloat16", True),
             bidirectional_layers=rwkv_conf.get("bidirectional_layers"),
-            alt_decoding=rwkv_conf.get("alt_decoding", False))
+            alt_decoding=rwkv_conf.get("alt_decoding", False),
+            spmd_axis=rwkv_conf.get("spmd_axis"))
     if layer_type == "mamba_att":
         return MambaAttention(
             head_size=d_model // heads, d_model=d_model,
@@ -131,7 +139,8 @@ class ConformerEncoderLayer(nn.Module):
                  dropout_rate: float = 0.1, cnn_module_kernel: int = 31,
                  cnn_module_norm: str = "layer_norm",
                  activation: str = "swish", causal: bool = False,
-                 macaron_style: bool = True, use_cnn_module: bool = True):
+                 macaron_style: bool = True, use_cnn_module: bool = True,
+                 spmd_axis: Optional[str] = None):
         super().__init__()
         ln = lambda: nn.LayerNorm(d_model, eps=1e-5)  # noqa: E731
         ffn = lambda: PositionwiseFeedForward(  # noqa: E731
@@ -145,7 +154,8 @@ class ConformerEncoderLayer(nn.Module):
         if use_cnn_module:
             self.norm_conv = ln()
             self.conv_module = ConvolutionModule(d_model, cnn_module_kernel,
-                                                 cnn_module_norm, causal)
+                                                 cnn_module_norm, causal,
+                                                 spmd_axis)
         self.norm_ff = ln()
         self.feed_forward = ffn()
         if use_cnn_module:
@@ -270,8 +280,17 @@ class ConformerEncoder(nn.Module):
         # the host generator of the training forward's dynamic chunk draw
         # (seeded 0 at first use unless the trainer sets it)
         self.chunk_generator: Optional[torch.Generator] = None
+        self.spmd_axis = rwkv_conf.get("spmd_axis")
+        sub_kw = {}
+        if self.spmd_axis:
+            if input_layer != "conv2d":
+                raise ValueError(
+                    "spmd_axis from raw features requires the conv2d (ds4) "
+                    "frontend; use pre_embedded=True for "
+                    f"input_layer={input_layer!r}")
+            sub_kw["spmd_axis"] = self.spmd_axis
         self.embed = SUBSAMPLE_CLASSES[input_layer](input_size, output_size,
-                                                    dropout_rate)
+                                                    dropout_rate, **sub_kw)
         self.pos_enc = EMB_CLASSES[pos_enc_layer_type](
             output_size, positional_dropout_rate)
         layer_kwargs = dict(
@@ -279,7 +298,7 @@ class ConformerEncoder(nn.Module):
             dropout_rate=dropout_rate, cnn_module_kernel=cnn_module_kernel,
             cnn_module_norm=cnn_module_norm, activation=activation_type,
             causal=causal, macaron_style=macaron_style,
-            use_cnn_module=use_cnn_module)
+            use_cnn_module=use_cnn_module, spmd_axis=self.spmd_axis)
         # the encoder's own attention modules, one per plain block (flax
         # numbers them over the plain blocks only); None for an LSL block
         self.attention_names = []
@@ -325,14 +344,23 @@ class ConformerEncoder(nn.Module):
         pass): no subsampling, lengths clamped to T."""
         if not pre_embedded:
             xs, xs_lens = self.embed(xs, xs_lens)
-        out_lens = torch.clamp(xs_lens, max=xs.shape[1])
+        # under sequence parallelism the lengths are the whole sequence's
+        # (JAX clamps them to this shard's frames)
+        t_all = xs.shape[1] * (cc.axis_size(self.spmd_axis)
+                               if self.spmd_axis else 1)
+        out_lens = torch.clamp(xs_lens, max=t_all)
         xs, pos_emb = self.pos_enc(xs, offset=offset)
         if return_state:
             return self._chunk(xs, out_lens, pos_emb, streaming_state,
                                offset, att_cache_size)
         T = xs.shape[1]
         pad_mask = make_pad_mask(out_lens, T)
-        if self.use_dynamic_chunk and self.training:
+        lens = out_lens
+        if self.spmd_axis:
+            # this rank's T-shard of full-length sequences: no masks or
+            # lengths, the modules take their boundary frames from the mesh
+            pad_mask = att_mask = lens = None
+        elif self.use_dynamic_chunk and self.training:
             if self.chunk_generator is None:
                 self.chunk_generator = torch.Generator().manual_seed(0)
             att_mask = add_optional_chunk_mask(
@@ -350,15 +378,17 @@ class ConformerEncoder(nn.Module):
         for i, name in enumerate(self.block_attention):
             layer = getattr(self, f"layer_{i}")
             if name is None:
+                # an LSL block gets the lengths under sequence parallelism
+                # too, as in JAX (its RWKV then refuses them)
                 xs = layer(xs, att_mask, pos_emb, pad_mask, out_lens,
                            cat_embs)
             elif remat:
                 xs = torch.utils.checkpoint.checkpoint(
                     layer, xs, getattr(self, name), att_mask, pos_emb,
-                    pad_mask, out_lens, use_reentrant=False)
+                    pad_mask, lens, use_reentrant=False)
             else:
                 xs = layer(xs, getattr(self, name), att_mask, pos_emb,
-                           pad_mask, out_lens)
+                           pad_mask, lens)
             if return_layers:
                 layer_outs.append(xs)
         xs = self._after_norm(xs)

@@ -9,6 +9,15 @@ not train (see :class:`BatchNorm`).
 ``PositionwiseFeedForward(impl="pallas")`` runs K6, the fused FFN kernel
 (``ops/ffn.py``), while dropout is inactive, as the JAX module does; the
 default ``impl="xla"`` runs two plain products.
+
+The parallel forms (``parallel/``): the conv module's ``spmd_axis`` takes
+its depthwise conv's (kernel - 1) / 2 boundary frames on each side from
+the neighbouring T-shards (``halo_exchange``) and refuses masks, causal
+mode and caches, as JAX's; an FFN with ``tp_axis`` (set by
+``parallel/mesh.shard_params_tp``) holds a column slice of ``Dense_0`` and
+a row slice of ``Dense_1`` and closes its product with one psum; a
+``MoEFFNLayer`` with ``ep_axis`` (``shard_params_ep``) holds a slice of
+the experts and closes its combine with one psum.
 """
 from __future__ import annotations
 
@@ -21,6 +30,9 @@ import torch.nn.functional as F
 from paper_accurate_fast_cheap_tpu_torch.models.layers import (
     conv, dense, lecun_normal_, layer_norm)
 from paper_accurate_fast_cheap_tpu_torch.ops.ffn import ACTIVATIONS, fused_ffn
+from paper_accurate_fast_cheap_tpu_torch.parallel import collectives
+from paper_accurate_fast_cheap_tpu_torch.parallel.sequence import (
+    halo_exchange)
 
 
 BATCH_NORM_TRAINING = (
@@ -59,8 +71,10 @@ class ConvolutionModule(nn.Module):
     on each side)."""
 
     def __init__(self, channels: int, kernel_size: int = 31,
-                 norm: str = "layer_norm", causal: bool = False):
+                 norm: str = "layer_norm", causal: bool = False,
+                 spmd_axis: Optional[str] = None):
         super().__init__()
+        self.spmd_axis = spmd_axis
         if norm not in ("layer_norm", "batch_norm"):
             raise ValueError(f"conv module norm {norm!r}: layer_norm or "
                              "batch_norm")
@@ -89,6 +103,10 @@ class ConvolutionModule(nn.Module):
         output."""
         if return_cache and not self.causal:
             raise ValueError("streaming conv cache requires causal=True")
+        if self.spmd_axis and (mask_pad is not None or self.causal
+                               or return_cache):
+            raise ValueError("spmd_axis conv requires full-length "
+                             "non-causal sequences without caches")
         if mask_pad is not None:
             x = torch.where(mask_pad[..., None], x, torch.zeros((), dtype=x.dtype,
                                                               device=x.device))
@@ -102,7 +120,15 @@ class ConvolutionModule(nn.Module):
             new_cache = y[:, y.shape[1] - self.lorder:]
         elif self.causal:
             y = F.pad(y, (0, 0, self.lorder, 0))
-        y = conv(self.Conv_0, y.transpose(1, 2)).transpose(1, 2)
+        if self.spmd_axis:
+            h = self.lorder // 2
+            y = halo_exchange(y, self.spmd_axis, h, h)
+            c = self.Conv_0
+            dt = torch.promote_types(y.dtype, c.weight.dtype)
+            y = F.conv1d(y.transpose(1, 2).to(dt), c.weight.to(dt),
+                         c.bias.to(dt), groups=c.groups).transpose(1, 2)
+        else:
+            y = conv(self.Conv_0, y.transpose(1, 2)).transpose(1, 2)
         if hasattr(self, "LayerNorm_0"):
             y = layer_norm(self.LayerNorm_0, y)
         else:
@@ -121,8 +147,12 @@ class PositionwiseFeedForward(nn.Module):
     ``impl``: ``"xla"`` (default, two products), ``"pallas"`` (K6 while
     dropout is inactive: in ``.eval()`` or at rate 0) or ``"auto"``, which
     resolves to ``"xla"`` (the JAX package's ``PAFC_FFN_IMPL`` switch is not
-    ported).  Both share the ``Dense_0``/``Dense_1`` parameters.
+    ported).  Both share the ``Dense_0``/``Dense_1`` parameters.  Under
+    ``tp_axis`` both run on this rank's hidden slice; the psum of the
+    partial products precedes ``Dense_1``'s bias.
     """
+
+    tp_axis: Optional[str] = None
 
     def __init__(self, d_model: int, hidden: int, dropout_rate: float = 0.1,
                  activation: str = "swish", impl: str = "xla"):
@@ -139,12 +169,20 @@ class PositionwiseFeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         drop_active = self.training and self.dropout.p > 0.0
+        up, down, axis = self.Dense_0, self.Dense_1, self.tp_axis
+        if axis:
+            x = collectives.pvary(x, axis)
+        b2 = torch.zeros_like(down.bias) if axis else down.bias
         if self.impl == "pallas" and not drop_active:
-            return fused_ffn(x, self.Dense_0.weight, self.Dense_0.bias,
-                             self.Dense_1.weight, self.Dense_1.bias,
-                             self.activation)
-        y = ACTIVATIONS[self.activation](dense(self.Dense_0, x))
-        return dense(self.Dense_1, self.dropout(y))
+            out = fused_ffn(x, up.weight, up.bias, down.weight, b2,
+                            self.activation)
+        else:
+            y = self.dropout(ACTIVATIONS[self.activation](dense(up, x)))
+            dt = torch.promote_types(y.dtype, down.weight.dtype)
+            out = F.linear(y.to(dt), down.weight.to(dt), b2.to(dt))
+        if not axis:
+            return out
+        return collectives.psum(out, axis) + down.bias.to(out.dtype)
 
 
 def top_k_lowest_index(x: torch.Tensor, k: int):
@@ -159,7 +197,11 @@ class MoEFFNLayer(nn.Module):
     (Linear, no bias) picks ``n_expert_per_token`` experts per frame (ties
     to the lowest index), softmax over their logits gives the combine
     weights, and every expert runs on every frame (``w1`` (E, D, H), ``w2``
-    (E, H, D), no biases, flax's layout)."""
+    (E, H, D), no biases, flax's layout).  Under ``ep_axis`` this rank
+    holds E / n experts and combines their outputs, and one psum sums the
+    ranks' shares."""
+
+    ep_axis: Optional[str] = None
 
     def __init__(self, d_model: int, hidden: int, n_experts: int = 4,
                  n_expert_per_token: int = 2, activation: str = "swish"):
@@ -182,8 +224,15 @@ class MoEFFNLayer(nn.Module):
         topv, topi = top_k_lowest_index(logits, self.k)
         weights = torch.softmax(topv, dim=-1)
         comb = torch.zeros_like(logits).scatter_add_(-1, topi, weights)
+        axis = self.ep_axis
+        if axis:
+            x = collectives.pvary(x, axis)
+            e = self.w1.shape[0]
+            comb = collectives.pvary(comb, axis).narrow(
+                -1, collectives.axis_index(axis) * e, e)
         dt = torch.promote_types(x.dtype, self.w1.dtype)
         h = ACTIVATIONS[self.activation](
             torch.einsum("btd,edh->bteh", x.to(dt), self.w1.to(dt)))
         out = torch.einsum("bteh,ehd->bted", h, self.w2.to(dt))
-        return torch.einsum("bted,bte->btd", out, comb.to(dt))
+        y = torch.einsum("bted,bte->btd", out, comb.to(dt))
+        return collectives.psum(y, axis) if axis else y

@@ -26,7 +26,8 @@ import torch.nn as nn
 from paper_accurate_fast_cheap_tpu_torch.models.asr_model import ASRModel
 from paper_accurate_fast_cheap_tpu_torch.models.ctc_head import ctc_loss
 from paper_accurate_fast_cheap_tpu_torch.models.decoder import attention_loss
-from paper_accurate_fast_cheap_tpu_torch.ops.common import cosine
+from paper_accurate_fast_cheap_tpu_torch.ops.common import (
+    cosine, normaliser)
 from paper_accurate_fast_cheap_tpu_torch.utils import jax_prng
 from paper_accurate_fast_cheap_tpu_torch.utils.masks import make_pad_mask
 
@@ -38,6 +39,10 @@ def draw_negative_offsets(shape: Tuple[int, ...], lo: int, hi: int,
 
 
 class CTLModel(nn.Module):
+    # maps a loss's count to the one this rank's shard stands for
+    # (``ops/common.normaliser``; set by ``parallel/mesh.share_counts``)
+    count_sync = None
+
     def __init__(self, asr_conf: dict, ctl_weight: float = 1.0,
                  n_negatives: int = 50, logit_temp: float = 0.1,
                  chunk_size: int = 16, temperature: float = 0.1):
@@ -61,7 +66,7 @@ class CTLModel(nn.Module):
             loss_att, acc = attention_loss(
                 m.decoder, enc, enc_lens, labels, label_lens, m.sos, m.eos,
                 m.reverse_weight, m.lsm_weight, m.ignore_id,
-                m.length_normalized_loss)
+                m.length_normalized_loss, self.count_sync)
         return m.ctc_weight * loss_ctc + (1.0 - m.ctc_weight) * loss_att, acc
 
     def _offsets(self, shape, hi: int) -> torch.Tensor:
@@ -85,7 +90,7 @@ class CTLModel(nn.Module):
         logits = torch.cat([pos[..., None], neg], dim=-1)
         logp = torch.log_softmax(logits, dim=-1)[..., 0]
         logp = torch.where(valid, logp, torch.zeros((), device=x.device))
-        return -logp.sum() / valid.sum().clamp(min=1)
+        return -logp.sum() / normaliser(valid.sum(), self.count_sync)
 
     def forward(self, feats, feat_lens, labels, label_lens):
         enc_full, lens_full = self.asr.encoder(feats, feat_lens)

@@ -173,21 +173,23 @@ class BiTransformerDecoder(nn.Module):
 def attention_loss(decoder: BiTransformerDecoder, enc, enc_lens, labels,
                    label_lens, sos: int, eos: int, reverse_weight: float,
                    lsm_weight: float, ignore_id: int,
-                   normalize_length: bool):
+                   normalize_length: bool, count_sync=None):
     """The attention branch of the training loss (the JAX models'
     ``_att_loss``): label smoothing on the left decoder, plus
     ``reverse_weight`` x the right decoder's over the reversed labels
     (padded with 0 before <sos>/<eos> are added), with the left lengths + 1.
-    Returns (loss, the left decoder's token accuracy)."""
+    ``count_sync``: ``ops/common.normaliser``'s.  Returns (loss, the left
+    decoder's token accuracy)."""
     ys_in, ys_out = add_sos_eos(labels, label_lens, sos, eos, ignore_id)
     r_ys = reverse_pad_list(labels, label_lens, 0)
     r_ys_in, r_ys_out = add_sos_eos(r_ys, label_lens, sos, eos, ignore_id)
     l_logits, r_logits = decoder(enc, enc_lens, ys_in, label_lens + 1,
                                  r_ys_in, reverse_weight)
     loss = label_smoothing_loss(l_logits, ys_out, lsm_weight, ignore_id,
-                                normalize_length)
+                                normalize_length, count_sync)
     if reverse_weight > 0.0:
         loss_r = label_smoothing_loss(r_logits, r_ys_out, lsm_weight,
-                                      ignore_id, normalize_length)
+                                      ignore_id, normalize_length,
+                                      count_sync)
         loss = (1.0 - reverse_weight) * loss + reverse_weight * loss_r
-    return loss, accuracy(l_logits, ys_out, ignore_id)
+    return loss, accuracy(l_logits, ys_out, ignore_id, count_sync)

@@ -37,12 +37,13 @@ _ENCODER_KEYS = {
     "cgmlp_linear_units", "cgmlp_conv_kernel", "use_ffn",
     "merge_conv_kernel",
 }
-# keys routed into rwkv_conf (accepted; wkv_impl/wkv_chunk_size do nothing)
+# keys routed into rwkv_conf (accepted; wkv_impl/wkv_chunk_size do nothing;
+# spmd_axis is set by recognize_wav --seq_parallel)
 _RWKV_KEYS = {
     "rnn_att_version", "rnn_att_direction", "rwkv_ctx_len",
     "rwkv_do_bfloat16", "att_context_size", "global_tokens",
     "global_tokens_spacing", "global_attn_separate", "wkv_impl",
-    "wkv_chunk_size",
+    "wkv_chunk_size", "spmd_axis",
 }
 
 

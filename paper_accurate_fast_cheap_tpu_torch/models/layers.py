@@ -21,6 +21,10 @@ def _promote(x: torch.Tensor, w: torch.Tensor) -> torch.dtype:
 
 
 def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin`` on ``x`` in the promoted dtype; a subclass of ``nn.Linear``
+    with a forward of its own runs that."""
+    if type(lin).forward is not nn.Linear.forward:
+        return lin(x)
     dt = _promote(x, lin.weight)
     b = None if lin.bias is None else lin.bias.to(dt)
     return F.linear(x.to(dt), lin.weight.to(dt), b)

@@ -18,6 +18,12 @@ initialisation draws from a ``torch.Generator`` with the JAX formulas
 (``dt_bias`` so that softplus spans [dt_min, dt_max], ``A_log`` = log of a
 uniform draw in [1, 16]); parity with JAX is held through converted
 weights, not through the draws.
+
+``spmd_axis`` (sequence parallelism, ``parallel/sequence.py``): on this
+rank's T-shard the causal conv's ``d_conv - 1`` left frames come from the
+previous shard (``halo_exchange``), the SSD runs through ``ssd_sp_body``
+and ``bi``'s backward block through ``flip_sharded``; streaming state and
+``lengths`` are refused, as in JAX.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ import torch.nn.functional as F
 from paper_accurate_fast_cheap_tpu_torch.models.layers import conv, dense
 from paper_accurate_fast_cheap_tpu_torch.models.rwkv import flip_padded
 from paper_accurate_fast_cheap_tpu_torch.ops import ssd as ssd_ops
+from paper_accurate_fast_cheap_tpu_torch.parallel.sequence import (
+    flip_sharded, halo_exchange, ssd_sp_body)
 
 
 class GatedRMSNorm(nn.Module):
@@ -56,8 +64,9 @@ DT_MIN, DT_MAX, A_INIT_RANGE = 0.001, 0.1, (1.0, 16.0)
 
 class Mamba2Block(nn.Module):
     def __init__(self, d_model: int, d_state: int = 128, headdim: int = 64,
-                 chunk_size: int = 64):
+                 chunk_size: int = 64, spmd_axis: Optional[str] = None):
         super().__init__()
+        self.spmd_axis = spmd_axis
         self.d_inner = EXPAND * d_model
         self.headdim = headdim
         self.nheads = self.d_inner // headdim
@@ -101,7 +110,12 @@ class Mamba2Block(nn.Module):
         streaming = return_state or state is not None
         new_state = {}
         K = D_CONV - 1
-        if streaming:
+        if streaming and self.spmd_axis:
+            raise ValueError("streaming state is per-chunk sequential: "
+                             "incompatible with sequence parallelism")
+        if self.spmd_axis:
+            full = halo_exchange(conv_in, self.spmd_axis, K, 0)
+        elif streaming:
             cache = (state["conv"].to(conv_in.dtype) if state is not None
                      else conv_in.new_zeros(Bt, K, conv_in.shape[-1]))
             full = torch.cat([cache, conv_in], dim=1)
@@ -118,7 +132,10 @@ class Mamba2Block(nn.Module):
         args = (xs.reshape(Bt, T, H, self.headdim), dtv.to(dt), A.to(dt),
                 Bc.reshape(Bt, T, G, N), Cc.reshape(Bt, T, G, N),
                 self.D.to(dt))
-        if streaming:
+        if self.spmd_axis:
+            y = ssd_sp_body(*args, self.spmd_axis,
+                            chunk_size=self.chunk_size)
+        elif streaming:
             y, new_state["ssd"] = ssd_ops.ssd(
                 *args, state=None if state is None else state["ssd"],
                 chunk_size=self.chunk_size, return_state=True)
@@ -136,15 +153,12 @@ class MambaAttention(nn.Module):
                  d_state: int = 128, chunk_size: int = 64,
                  spmd_axis: Optional[str] = None):
         super().__init__()
-        if spmd_axis:
-            raise NotImplementedError(
-                "mamba spmd_axis (sequence parallelism) waits for ROADMAP "
-                "Queue 1, item 14")
         if direction not in ("uni", "bi"):
             raise ValueError(f"unknown mamba direction {direction!r}")
         self.direction = direction
+        self.spmd_axis = spmd_axis
         mk = lambda: Mamba2Block(d_model, d_state, head_size,  # noqa: E731
-                                 chunk_size)
+                                 chunk_size, spmd_axis)
         self.mamba_fwd = mk()
         if direction == "bi":
             self.mamba_bwd = mk()
@@ -158,5 +172,11 @@ class MambaAttention(nn.Module):
             return self.mamba_fwd(x, state=state, return_state=True)
         if self.direction == "uni":
             return self.mamba_fwd(x)
+        if self.spmd_axis:
+            if lengths is not None:
+                raise ValueError("spmd_axis (sequence parallelism) requires "
+                                 "full-length sequences (lengths=None)")
+            flip = lambda t: flip_sharded(t, self.spmd_axis)  # noqa: E731
+            return (self.mamba_fwd(x) + flip(self.mamba_bwd(flip(x)))) / 2
         y_rev = flip_padded(self.mamba_bwd(flip_padded(x, lengths)), lengths)
         return (self.mamba_fwd(x) + y_rev) / 2

@@ -137,6 +137,10 @@ def cif_peaks(alphas: torch.Tensor, token_nums: torch.Tensor,
 
 
 class Paraformer(nn.Module):
+    # maps a loss's count to the one this rank's shard stands for
+    # (``ops/common.normaliser``; set by ``parallel/mesh.share_counts``)
+    count_sync = None
+
     def __init__(self, vocab_size: int, encoder_conf: dict,
                  encoder_type: str = "conformer", decoder_blocks: int = 4,
                  decoder_heads: int = 4, decoder_linear_units: int = 1024,
@@ -211,7 +215,8 @@ class Paraformer(nn.Module):
                 + self.ctc_weight * loss_ctc)
         return {"loss": loss, "loss_decoder": loss_dec,
                 "loss_quantity": loss_quantity, "loss_ctc": loss_ctc,
-                "th_accuracy": accuracy(logits, tgt, self.ignore_id)}
+                "th_accuracy": accuracy(logits, tgt, self.ignore_id,
+                                        self.count_sync)}
 
     def _sampler(self, enc, enc_lens, acoustic_embs, tgt, label_lens):
         """The glancing sampler: a first decoder pass in eval mode and

@@ -16,9 +16,17 @@ average both unless ``alt_decoding`` (even layers L2R, odd layers R2L) or
 otherwise.  ``wkv_impl`` and
 ``wkv_version`` are accepted so configs load, and do nothing: the kernel
 wrapper always runs (its plain version on the CPU).
+
+``spmd_axis`` (sequence parallelism, ``parallel/sequence.py``): the module
+runs on this rank's T-shard inside an active mesh with that axis.  The
+token shift's lead row comes from a 1-frame left halo, the WKV runs through
+``wkv6_sp_body`` (K1's summary and replay passes) and the backward
+direction through ``flip_sharded``; ``lengths`` are refused (full-length
+sequences only), as in JAX.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -28,6 +36,8 @@ import torch.nn as nn
 from paper_accurate_fast_cheap_tpu_torch.models.layers import (
     dense, layer_norm, uniform_)
 from paper_accurate_fast_cheap_tpu_torch.ops.wkv6_cuda import wkv6_cuda
+from paper_accurate_fast_cheap_tpu_torch.parallel.sequence import (
+    flip_sharded, halo_exchange, wkv6_sp_body)
 
 D_MIX_LORA = 32
 D_DECAY_LORA = 64
@@ -64,9 +74,11 @@ class RWKVTimeMix(nn.Module):
     """RWKV-6c time-mix block: (B, T, C) -> (B, T, C)."""
 
     def __init__(self, head_size: int, n_layers: int, n_embd: int,
-                 dim_att: int, layer_id: int = 0):
+                 dim_att: int, layer_id: int = 0,
+                 spmd_axis: Optional[str] = None):
         super().__init__()
         C, A = n_embd, dim_att
+        self.spmd_axis = spmd_axis
         self.head_size = head_size
         self.n_head = A // head_size
         self._ramps = (layer_id, n_layers, C, A)
@@ -110,6 +122,9 @@ class RWKVTimeMix(nn.Module):
         # token shift: xx_t = x_{t-1} - x_t (zero or carried at t=0)
         if state is not None:
             lead, wkv_state = state[0].to(dt), state[1]
+        elif self.spmd_axis:
+            lead = halo_exchange(x, self.spmd_axis, 1, 0)[:, :1]
+            wkv_state = None
         else:
             lead, wkv_state = x.new_zeros(B, 1, x.shape[-1]), None
         xx = torch.cat([lead, x[:, :-1]], dim=1) - x
@@ -129,9 +144,11 @@ class RWKVTimeMix(nn.Module):
             torch.tanh(xw @ self.time_decay_w1.to(dt))
             @ self.time_decay_w2.to(dt))
         shp = (B, T, self.n_head, self.head_size)
-        y = wkv6_cuda(r.reshape(shp), k.reshape(shp), v.reshape(shp),
-                      w.to(r.dtype).reshape(shp), self.time_faaaa.to(r.dtype),
-                      state=wkv_state, return_state=return_state)
+        wkv = (functools.partial(wkv6_sp_body, axis=self.spmd_axis)
+               if self.spmd_axis else wkv6_cuda)
+        y = wkv(r.reshape(shp), k.reshape(shp), v.reshape(shp),
+                w.to(r.dtype).reshape(shp), self.time_faaaa.to(r.dtype),
+                state=wkv_state, return_state=return_state)
         if return_state:
             y, new_wkv = y
         y = layer_norm(self.ln_x, y.reshape(B, T, -1))
@@ -164,18 +181,20 @@ class RWKVAttention(nn.Module):
                  direction: str = "bi", layer_id: int = 0,
                  do_bfloat16: bool = True,
                  bidirectional_layers: Optional[Sequence[int]] = None,
-                 alt_decoding: bool = False):
+                 alt_decoding: bool = False,
+                 spmd_axis: Optional[str] = None):
         super().__init__()
         if direction not in ("uni", "bi", "dirdrop", "dirdrop_both"):
             raise ValueError(f"unknown rwkv direction: {direction!r}")
         self.direction = direction
+        self.spmd_axis = spmd_axis
         self.layer_id = layer_id
         self.do_bfloat16 = do_bfloat16
         self.bidirectional_layers = (None if bidirectional_layers is None
                                      else tuple(bidirectional_layers))
         self.alt_decoding = alt_decoding
         mk = lambda: RWKVTimeMix(head_size, n_layers, dim_att, dim_att,  # noqa
-                                 layer_id)
+                                 layer_id, spmd_axis)
         self.tmix = mk()
         if direction != "uni":
             self.tmix_rev = mk()
@@ -217,7 +236,14 @@ class RWKVAttention(nn.Module):
         l2r, r2l = self._passes()
         if l2r:
             y = self.tmix(x)
-        if r2l:
+        if r2l and self.spmd_axis:
+            if lengths is not None:
+                raise ValueError("spmd_axis (sequence parallelism) requires "
+                                 "full-length sequences (lengths=None)")
+            flip = functools.partial(flip_sharded, axis=self.spmd_axis)
+            y_rev = flip(self.tmix_rev(flip(x)))
+            y = (y + y_rev) / 2 if l2r else y_rev
+        elif r2l:
             y_rev = flip_padded(self.tmix_rev(flip_padded(x, lengths)),
                                 lengths)
             y = (y + y_rev) / 2 if l2r else y_rev

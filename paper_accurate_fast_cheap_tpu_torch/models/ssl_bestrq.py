@@ -31,6 +31,7 @@ from paper_accurate_fast_cheap_tpu_torch.models.encoder_registry import (
 from paper_accurate_fast_cheap_tpu_torch.models.layers import dense
 from paper_accurate_fast_cheap_tpu_torch.models.ssl_wav2vec2 import (
     draw_span_starts, span_mask)
+from paper_accurate_fast_cheap_tpu_torch.ops.common import normaliser
 from paper_accurate_fast_cheap_tpu_torch.utils import jax_prng
 from paper_accurate_fast_cheap_tpu_torch.utils.masks import make_pad_mask
 
@@ -52,6 +53,10 @@ def draw_noise(shape: Tuple[int, ...],
 
 
 class BestRQModel(nn.Module):
+    # maps a loss's count to the one this rank's shard stands for
+    # (``ops/common.normaliser``; set by ``parallel/mesh.share_counts``)
+    count_sync = None
+
     def __init__(self, encoder_conf: dict, encoder_type: str = "conformer",
                  input_size: int = 80, num_codebooks: int = 1,
                  codebook_size: int = 8192, codebook_dim: int = 16,
@@ -115,7 +120,7 @@ class BestRQModel(nn.Module):
         m_enc = F.pad(mask, (0, (-T) % s)).reshape(B, -1, s).any(-1)
         Te = min(enc.shape[1], m_enc.shape[1])
         sel = m_enc[:, :Te]
-        denom = sel.sum().clamp(min=1)
+        denom = normaliser(sel.sum(), self.count_sync)
         losses, accs = [], []
         for i in range(self.num_codebooks):
             logits = dense(getattr(self, f"head_{i}"), enc)[:, :Te]

@@ -23,10 +23,15 @@ from paper_accurate_fast_cheap_tpu_torch.models import ssl_wav2vec2 as w2v
 from paper_accurate_fast_cheap_tpu_torch.models.encoder_registry import (
     build_encoder, eval_forward)
 from paper_accurate_fast_cheap_tpu_torch.models.layers import dense, normal_
+from paper_accurate_fast_cheap_tpu_torch.ops.common import normaliser
 from paper_accurate_fast_cheap_tpu_torch.utils.masks import make_pad_mask
 
 
 class W2VBertModel(nn.Module):
+    # maps a loss's count to the one this rank's shard stands for
+    # (``ops/common.normaliser``; set by ``parallel/mesh.share_counts``)
+    count_sync = None
+
     def __init__(self, encoder_conf: dict, encoder_type: str = "conformer",
                  proj_dim: int = 256, num_codebooks: int = 2,
                  codebook_entries: int = 320, num_negatives: int = 50,
@@ -87,9 +92,9 @@ class W2VBertModel(nn.Module):
         offs = w2v.draw_negative_offsets(self.num_negatives, 1,
                                          max(Te - 1, 2), generator)
         loss_c, _ = w2v.info_nce(context, targets, offs, mask_e,
-                                 self.temperature)
+                                 self.temperature, self.count_sync)
         # MLM on the top output: each codebook's id of each masked frame
-        denom = mask_e.sum().clamp(min=1)
+        denom = normaliser(mask_e.sum(), self.count_sync)
         loss_mlm = torch.zeros((), device=feats.device)
         accs = []
         for g in range(self.num_codebooks):

@@ -27,7 +27,8 @@ import torch.nn as nn
 from paper_accurate_fast_cheap_tpu_torch.models.encoder_registry import (
     build_encoder, eval_forward)
 from paper_accurate_fast_cheap_tpu_torch.models.layers import dense, normal_
-from paper_accurate_fast_cheap_tpu_torch.ops.common import cosine
+from paper_accurate_fast_cheap_tpu_torch.ops.common import (
+    cosine, normaliser)
 from paper_accurate_fast_cheap_tpu_torch.utils.masks import make_pad_mask
 
 
@@ -67,14 +68,16 @@ def negatives(targets: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     return targets[torch.arange(B, device=dev)[:, None, None], idx]
 
 
-def info_nce(context, targets, offs, mask, temperature: float):
-    """InfoNCE over the masked frames: (loss, accuracy)."""
+def info_nce(context, targets, offs, mask, temperature: float,
+             count_sync=None):
+    """InfoNCE over the masked frames: (loss, accuracy); ``count_sync``:
+    ``ops/common.normaliser``'s."""
     negs = negatives(targets, offs)
     pos = cosine(context, targets) / temperature
     neg = cosine(context[:, :, None], negs) / temperature
     logits = torch.cat([pos[..., None], neg], dim=-1)
     logp = torch.log_softmax(logits, dim=-1)[..., 0]
-    denom = mask.sum().clamp(min=1)
+    denom = normaliser(mask.sum(), count_sync)
     zero = torch.zeros((), dtype=logp.dtype, device=logp.device)
     loss = -torch.where(mask, logp, zero).sum() / denom
     acc = (mask & (logits.argmax(-1) == 0)).sum() / denom
@@ -124,6 +127,10 @@ class ProductQuantizer(nn.Module):
 
 
 class Wav2Vec2Model(nn.Module):
+    # maps a loss's count to the one this rank's shard stands for
+    # (``ops/common.normaliser``; set by ``parallel/mesh.share_counts``)
+    count_sync = None
+
     def __init__(self, encoder_conf: dict, encoder_type: str = "conformer",
                  proj_dim: int = 256, num_negatives: int = 50,
                  mask_prob: float = 0.065, mask_length: int = 10,
@@ -169,7 +176,7 @@ class Wav2Vec2Model(nn.Module):
         offs = draw_negative_offsets(self.num_negatives, 1, max(Te - 1, 2),
                                      g)
         loss_c, acc = info_nce(context, targets, offs, mask_e,
-                               self.temperature)
+                               self.temperature, self.count_sync)
         loss = loss_c + self.diversity_weight * diversity
         return {"loss": loss, "loss_contrastive": loss_c,
                 "loss_diversity": diversity, "acc": acc,

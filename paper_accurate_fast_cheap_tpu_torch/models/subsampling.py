@@ -10,12 +10,16 @@ clamped at 0.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from paper_accurate_fast_cheap_tpu_torch.models.layers import (
     conv, dense, layer_norm)
+from paper_accurate_fast_cheap_tpu_torch.parallel.sequence import (
+    halo_exchange)
 
 
 def _floor_div(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -77,9 +81,34 @@ class _Conv2dSubsampling(nn.Module):
 
 
 class Conv2dSubsampling4(_Conv2dSubsampling):
-    """Two stride-2 3x3 convs: output length ((T - 1) // 2 - 1) // 2."""
+    """Two stride-2 3x3 convs: output length ((T - 1) // 2 - 1) // 2.
+
+    ``spmd_axis`` (sequence parallelism: this rank's T-shard inside an
+    active mesh with that axis) fetches a 6-frame right halo
+    (``right_context``): global output j reads inputs [4j, 4j + 6], so with
+    the local T divisible by 4 the halo'd VALID convs give exactly T / 4
+    outputs a shard, the unsharded outputs on every frame that exists
+    globally (the last shard's tail reads the zero halo, as the unsharded
+    op on the window zero-padded by 6 frames does)."""
 
     LAYERS = ((3, 2), (3, 2))
+    right_context = 6
+
+    def __init__(self, idim: int, odim: int, dropout_rate: float = 0.1,
+                 spmd_axis: Optional[str] = None):
+        super().__init__(idim, odim, dropout_rate)
+        self.spmd_axis = spmd_axis
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor):
+        if not self.spmd_axis:
+            return super().forward(x, lengths)
+        if x.shape[1] % 4:
+            raise ValueError(f"sequence-parallel ds4 needs the local window "
+                             f"({x.shape[1]}) divisible by 4")
+        t_out = x.shape[1] // 4
+        x = halo_exchange(x, self.spmd_axis, 0, self.right_context)
+        y, lengths = super().forward(x, lengths)
+        return y[:, :t_out], lengths
 
 
 class Conv2dSubsampling6(_Conv2dSubsampling):

@@ -20,16 +20,18 @@ import torch
 
 from paper_accurate_fast_cheap_tpu_torch.models.encoder_registry import (
     eval_forward)
+from paper_accurate_fast_cheap_tpu_torch.ops.common import normaliser
 from paper_accurate_fast_cheap_tpu_torch.train.train_step import bind_params
 from paper_accurate_fast_cheap_tpu_torch.utils.masks import make_pad_mask
 
 
 def kl_ctc_distill(student_logp: torch.Tensor, teacher_logp: torch.Tensor,
-                   enc_mask: torch.Tensor) -> torch.Tensor:
-    """KL(teacher || student) over the frames of ``enc_mask``."""
+                   enc_mask: torch.Tensor, count_sync=None) -> torch.Tensor:
+    """KL(teacher || student) over the frames of ``enc_mask``;
+    ``count_sync``: ``ops/common.normaliser``'s."""
     kl = (teacher_logp.exp() * (teacher_logp - student_logp)).sum(-1)
     kl = torch.where(enc_mask, kl, torch.zeros((), device=kl.device))
-    return kl.sum() / enc_mask.sum().clamp(min=1)
+    return kl.sum() / normaliser(enc_mask.sum(), count_sync)
 
 
 def make_ts_loss_fn(student_model, teacher_model,
@@ -53,7 +55,8 @@ def make_ts_loss_fn(student_model, teacher_model,
                                     feat_lens)
             t_logp = teacher_model.ctc.log_probs(t_enc)
         mask = make_pad_mask(s_lens, s_enc.shape[1])
-        loss_distill = kl_ctc_distill(s_logp, t_logp.detach(), mask)
+        loss_distill = kl_ctc_distill(s_logp, t_logp.detach(), mask,
+                                      student_model.count_sync)
         loss = student_weight * out["loss"] + distill_weight * loss_distill
         if encoder_l2_weight > 0.0:
             l2 = (s_enc - t_enc.detach()).square().mean()

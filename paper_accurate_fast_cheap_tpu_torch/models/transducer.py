@@ -49,6 +49,10 @@ PREDICTORS = {
 
 
 class Transducer(nn.Module):
+    # maps a loss's count to the one this rank's shard stands for
+    # (``ops/common.normaliser``; set by ``parallel/mesh.share_counts``)
+    count_sync = None
+
     def __init__(self, vocab_size: int, encoder_conf: dict,
                  predictor_conf: Optional[dict] = None,
                  joint_conf: Optional[dict] = None, blank_id: int = 0,
@@ -100,6 +104,13 @@ class Transducer(nn.Module):
         "th_accuracy"}.  Dropout follows ``.train()``/``.eval()``."""
         enc_kw = {} if cat_embs is None else {"cat_embs": cat_embs}
         enc, enc_lens = self.encoder(feats, feat_lens, **enc_kw)
+        return self.loss_from_encoder(enc, enc_lens, labels, label_lens)
+
+    def loss_from_encoder(self, enc: torch.Tensor, enc_lens: torch.Tensor,
+                          labels: torch.Tensor, label_lens: torch.Tensor):
+        """The post-encoder half of ``forward`` (JAX's
+        ``loss_from_encoder``): the losses from encoder outputs, which the
+        pipelined trainer computes itself (``parallel/pp_encoder.py``)."""
         ys_blank = add_blank(labels, label_lens, self.blank_id)
         pred_out = self.predictor(ys_blank)
         enc_p = self.joint.project_enc(enc)
@@ -128,7 +139,8 @@ class Transducer(nn.Module):
         return attention_loss(self.decoder, enc, enc_lens, labels,
                               label_lens, self.sos, self.eos,
                               self.reverse_weight, self.lsm_weight,
-                              self.ignore_id, self.length_normalized_loss)
+                              self.ignore_id, self.length_normalized_loss,
+                              self.count_sync)
 
     # ---- inference surfaces ----
 

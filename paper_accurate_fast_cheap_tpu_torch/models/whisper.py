@@ -80,6 +80,10 @@ class WhisperEncoder(nn.Module):
 
 
 class WhisperModel(nn.Module):
+    # maps a loss's count to the one this rank's shard stands for
+    # (``ops/common.normaliser``; set by ``parallel/mesh.share_counts``)
+    count_sync = None
+
     def __init__(self, vocab_size: int = 51865, n_mels: int = 80,
                  d_model: int = 512, heads: int = 8, encoder_blocks: int = 6,
                  decoder_blocks: int = 6, max_target_positions: int = 448,
@@ -118,7 +122,8 @@ class WhisperModel(nn.Module):
         logits = self.decode_logits(enc, enc_lens, ys_in, ys_lens)
         return {"loss": label_smoothing_loss(logits, ys_out, self.lsm_weight,
                                              self.ignore_id),
-                "th_accuracy": accuracy(logits, ys_out, self.ignore_id)}
+                "th_accuracy": accuracy(logits, ys_out, self.ignore_id,
+                                        self.count_sync)}
 
 
 @torch.no_grad()

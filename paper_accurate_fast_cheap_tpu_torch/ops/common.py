@@ -1,5 +1,7 @@
 """Small tensor helpers shared by the ops and the models; the label helpers
 are ports of the JAX package's ``utils/common.py``."""
+from typing import Callable, Optional
+
 import torch
 
 IGNORE_ID = -1
@@ -66,9 +68,19 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a * b).sum(-1)
 
 
+def normaliser(count: torch.Tensor,
+               count_sync: Optional[Callable] = None) -> torch.Tensor:
+    """The count a loss or a metric divides by (tokens, frames), clamped at
+    1; ``count_sync``, when given, maps this rank's count to the one its
+    shard stands for (data parallelism: ``parallel/mesh.share_counts``)."""
+    count = count.clamp(min=1)
+    return count if count_sync is None else count_sync(count)
+
+
 def accuracy(logits: torch.Tensor, targets: torch.Tensor,
-             ignore_id: int = IGNORE_ID) -> torch.Tensor:
+             ignore_id: int = IGNORE_ID,
+             count_sync: Optional[Callable] = None) -> torch.Tensor:
     """Token accuracy over the positions that are not ``ignore_id``."""
     valid = targets != ignore_id
     correct = ((logits.argmax(dim=-1) == targets) & valid).sum()
-    return correct / valid.sum().clamp(min=1)
+    return correct / normaliser(valid.sum(), count_sync)

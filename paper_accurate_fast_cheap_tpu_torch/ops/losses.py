@@ -2,19 +2,23 @@
 ``ops/losses.py``): the KL divergence against a (1 - eps, eps / (V - 1))
 smoothed distribution, its constant entropy term included, ``ignore_id``
 positions dropped, normalised by the batch (default) or by the token count
-(``normalize_length``)."""
+(``normalize_length``, through ``ops/common.normaliser``)."""
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional
 
 import torch
 
-from paper_accurate_fast_cheap_tpu_torch.ops.common import IGNORE_ID
+from paper_accurate_fast_cheap_tpu_torch.ops.common import (
+    IGNORE_ID, normaliser)
 
 
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
                          smoothing: float = 0.1, ignore_id: int = IGNORE_ID,
-                         normalize_length: bool = False) -> torch.Tensor:
+                         normalize_length: bool = False,
+                         count_sync: Optional[Callable] = None
+                         ) -> torch.Tensor:
     """logits (B, U, V), targets (B, U) with ``ignore_id`` padding."""
     B, U, V = logits.shape
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -36,6 +40,7 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
     cross = -(confidence * tgt_logp + low * (sum_logp - tgt_logp))
     kl = torch.where(valid, cross + kl_const.to(logp.device),
                      torch.zeros((), device=logp.device))
-    denom = (valid.sum().clamp(min=1).float() if normalize_length
+    denom = (normaliser(valid.sum().float(), count_sync)
+             if normalize_length
              else torch.tensor(float(B), device=logp.device))
     return kl.sum() / denom

@@ -222,7 +222,7 @@ def _transducer(c: _Converter) -> None:
                   c.get(f"predictor.rnn.weight_hh_l{k}"))
             k += 1
         c.dense("predictor.projection", "predictor.projection")
-    for n in ("enc_ffn", "pred_ffn", "ffn_out"):
+    for n in ("enc_ffn", "pred_ffn", "post_ffn", "ffn_out"):
         if c.owns(f"joint.{n}") and c.has(f"joint.{n}.weight"):
             c.dense(f"joint.{n}", f"joint.{n}")
 

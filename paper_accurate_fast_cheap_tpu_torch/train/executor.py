@@ -33,11 +33,15 @@ class Executor:
                  use_named_snapshots: bool = False, seed: int = 0,
                  metrics_logger=None, device=None,
                  state_dict_of: Optional[Callable] = None,
-                 accum_steps: int = 1):
+                 accum_steps: int = 1,
+                 batch_shard: Optional[Callable] = None):
         """``train_step(state, batch, seed) -> (state, loss, metrics)``;
         ``eval_loss(params, batch) -> (loss, metrics)``;
         ``featurize(wavs, wav_lens, train, generator)``; ``state_dict_of``
-        turns the state's parameters into the checkpoint's state_dict."""
+        turns the state's parameters into the checkpoint's state_dict;
+        ``batch_shard``, when given, takes this rank's part of a training
+        batch's tensors after the features (data parallelism: the global
+        batch is featurized alike on every rank, then sliced)."""
         self.train_step = train_step
         self.eval_loss = eval_loss
         self.featurize = featurize
@@ -49,6 +53,7 @@ class Executor:
         self.metrics_logger = metrics_logger
         self.state_dict_of = state_dict_of or dict
         self.accum_steps = accum_steps
+        self.batch_shard = batch_shard
         self.device = torch.device(device or "cpu")
         self.step = 0
         self.frames_seen = 0
@@ -69,6 +74,8 @@ class Executor:
             # the LSL conditioning vector, the model's fifth argument
             out = out + (torch.from_numpy(
                 np.asarray(batch["cat_embs"], np.float32)).to(self.device),)
+        if train and self.batch_shard is not None:
+            out = self.batch_shard(out)
         a = self.accum_steps
         if train and a > 1:
             B = out[0].shape[0]

@@ -147,14 +147,19 @@ def wrap_mixed_precision(loss_fn: Callable,
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                     accum_steps: int = 1, clip_hard_maxvalue: float = 0.0,
-                    trainable_mask: Optional[Dict[str, bool]] = None):
+                    trainable_mask: Optional[Dict[str, bool]] = None,
+                    grad_sync: Optional[Callable] = None):
     """``loss_fn(params, batch, seed) -> (loss, metrics)``; with
     ``accum_steps > 1`` every batch tensor has a leading microbatch axis of
     that size, microbatch j gets the seed ``seed * accum_steps + j`` and the
-    gradients are averaged.  Returns ``step(state, batch, seed, mark=None)
-    -> (state, loss, metrics)``; ``mark(name)``, when given, is called after
-    the forward (``"forward"``) and the backward (``"backward"``) of each
-    microbatch and after the update (``"optimizer"``)."""
+    gradients are averaged.  ``grad_sync(grads, loss, metrics) -> (grads,
+    loss, metrics)``, when given, combines the ranks' results before the
+    skip rule, the clip and the update (``parallel/mesh.dp_sync``,
+    ``parallel/pp_encoder.pp_grad_sync``), so every rank takes the same
+    step.  Returns ``step(state, batch, seed, mark=None) -> (state, loss,
+    metrics)``; ``mark(name)``, when given, is called after the forward
+    (``"forward"``) and the backward (``"backward"``) of each microbatch and
+    after the update (``"optimizer"``)."""
 
     def compute_grads(params: Params, batch, seed: int, mark):
         leaves = {n: p.detach().requires_grad_(True)
@@ -184,6 +189,8 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
 
     def step(state: TrainState, batch, seed: int, mark=None):
         loss, metrics, grads = compute_grads(state.params, batch, seed, mark)
+        if grad_sync is not None:
+            grads, loss, metrics = grad_sync(grads, loss, metrics)
         if trainable_mask is not None:
             grads = {n: g * float(trainable_mask[n]) for n, g in grads.items()}
         gnorm = global_norm(grads.values())

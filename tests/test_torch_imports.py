@@ -48,7 +48,9 @@ def test_port_imports_no_jax():
     # n-gram and WFST scorers, the FST CLI, the ESPnet searches, joint
     # decoding, HLG, the bidirectional transducer, the context adaptor,
     # teacher-student, CTL, Paraformer, the SSL models, Whisper and JAX's
-    # fixed-key draws) are among those imported
+    # fixed-key draws), and the parallel forms (the collectives, meshes,
+    # sequence parallelism, the pipeline, the pipelined encoder and the
+    # dry run) are among those imported
     assert {f"{PKG}.{m}" for m in (
         "ops.ffn", "ops.rnnt", "train.schedulers", "train.train_step",
         "bin.train_bench", "ops.multi_product", "ops.losses",
@@ -82,7 +84,10 @@ def test_port_imports_no_jax():
         "models.k2_model", "models.bitransducer", "models.context_adaptor",
         "models.teacher_student", "models.ctl_model", "models.paraformer",
         "models.ssl_wav2vec2", "models.ssl_w2vbert", "models.ssl_bestrq",
-        "models.whisper", "utils.jax_prng", "text.tokenizers")} <= set(mods)
+        "models.whisper", "utils.jax_prng", "text.tokenizers",
+        "parallel.collectives", "parallel.mesh", "parallel.sequence",
+        "parallel.pipeline", "parallel.pp_encoder", "parallel.dryrun")} <= set(
+            mods)
 
 
 def test_port_sources_do_not_name_the_jax_package():
